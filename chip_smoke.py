@@ -3,18 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from `dpgo_tpu_torch/csrc/` (nvcc, at
-first use), holds each against its plain PyTorch version at the shapes of the
-main path, then drives the main path once through the public entry points:
-AMM-PGO# with the refined TNT preset on `artifacts/rim_synth.g2o` (10,240
-poses, 16 nodes of 640 poses, d = 3, float32), 150 iterations. It checks the
-solution against the same slice run with the kernels' plain versions on the
-card, and prints the kernels' launch counts, errors and times.
+Builds the port's two CUDA kernels from `dpgo_tpu_torch/csrc/` (nvcc, one
+process per source, at first use), holds each against its plain PyTorch
+version at the shapes of the paths below, then drives three paths once each
+through the public entry points, AMM-PGO# with the refined TNT preset, 16
+nodes, float32, 150 iterations:
+
+1. rim: `artifacts/rim_synth.g2o` (10,240 poses, 640 per node, d = 3),
+   trivial loss. Kernels K1 (D = 3) and K2.
+2. manhattan: a 2-D Manhattan-world graph of the city10000 family built
+   from SEED + 1 (10,000 poses, 625 per node, d = 2), written as EDGE_SE2
+   text and read back through the port's g2o reader. Kernel K1 (D = 2); the
+   SO(2) projection is closed form.
+3. robust: rim_synth with every tenth inter-node edge replaced by an
+   outlier (drawn from SEED + 2), Huber loss (loss_reg 0.25) with dynamic
+   rescale. K1 (D = 3, on the reweighted Hred) and K2.
+
+Each path is checked against the same path run with the kernels' plain
+versions on the card, and against the exact global objective.
 
 Output: the card's name and power limit (nvidia-smi), one line per phase, a
-JSON line {"kernels": [...]}, and last a JSON line
-{"ok": true, "device": {...}}. Any failed check raises, exits non-zero and
-prints no result. Without a CUDA device it exits with code 2.
+JSON line {"paths": {...}}, a JSON line {"kernels": [...]}, and last a JSON
+line {"ok": true, "device": {...}}. Any failed check raises, exits non-zero
+and prints no result. Without a CUDA device it exits with code 2.
 """
 
 from __future__ import annotations
@@ -25,12 +36,14 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ITERS = 150
 NUM_NODES = 16
 SEED = 0
 DATASET = os.path.join("artifacts", "rim_synth.g2o")
+LOSS_REG = 0.25  # the CLI's default robust-loss parameter
 
 
 def fail(msg: str):
@@ -59,7 +72,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_polar_so3(rng, dev):
-    """K2 against its plain version on 10,240 matrices (the slice's
+    """K2 against its plain version on 10,240 matrices (the rim paths'
     projection batch: 16 nodes x 640 poses), every fifth with det < 0, plus
     one zero matrix."""
     import numpy as np
@@ -67,6 +80,7 @@ def phase_polar_so3(rng, dev):
 
     from dpgo_tpu_torch.ops.polar_so3_cuda import polar_so3_cuda
     from dpgo_tpu_torch.ops.so3 import polar_so3
+    from dpgo_tpu_torch.synthetic import random_rotations
 
     n = NUM_NODES * 640
     # A = U diag(sigma) V^T with random rotations U, V and singular values
@@ -76,16 +90,10 @@ def phase_polar_so3(rng, dev):
     # the two smallest singular values meet (the closest rotation is then
     # not unique), so the held inputs keep them apart; i.i.d. Gaussian
     # matrices are reported below but not held to 1e-5.
-    def rotations(m):
-        G = rng.normal(size=(m, 3, 3))
-        Qr, Rr = np.linalg.qr(G)
-        Qr = Qr * np.sign(np.diagonal(Rr, axis1=1, axis2=2))[:, None, :]
-        Qr[np.linalg.det(Qr) < 0, :, 0] *= -1
-        return Qr
-
     sigma = np.array([1.0, 2.0, 3.5]) + rng.uniform(0, 0.5, size=(n, 3))
     sigma *= 10.0 ** rng.uniform(-2, 2, size=(n, 1))
-    A = rotations(n) @ (sigma[:, :, None] * rotations(n).transpose(0, 2, 1))
+    A = random_rotations(rng, n) @ (
+        sigma[:, :, None] * random_rotations(rng, n).transpose(0, 2, 1))
     A[::5] *= -1.0
     A = np.concatenate([A, np.zeros((1, 3, 3))]).astype(np.float32)
     neg = np.linalg.det(A.astype(np.float64)) < 0
@@ -123,41 +131,34 @@ def phase_polar_so3(rng, dev):
     plain_ms = cuda_ms(lambda: polar_so3(At), 50)
     print(f"K2 time at [{n}, 3, 3]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           "ms")
-    return dict(name="polar_so3", route="cuda",
-                source="dpgo_tpu_torch/csrc/polar_so3.cu",
-                replaces="dpgo_tpu/ops/pallas_so3.py:70",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
-def phase_stpcg(solver, init):
-    """K1 against its plain version at the slice's shapes: the TNT-entry
-    quantities of every node after 3 AMM steps; node 0 is held to the
-    tolerances of tests/test_pallas_stpcg.py for Delta in {1.0, 0.02, 100}."""
+def phase_stpcg(label, p, st, tp, deltas=(1.0, 0.02, 100.0), timed=True):
+    """K1 against its plain version on the problems `p` at the TNT-entry
+    quantities of every node at state `st`; node 0 is held to the
+    tolerances of tests/test_pallas_stpcg.py and to the same CG count for
+    each trust radius in `deltas`. The other nodes are reported: at a large
+    radius a node whose CG runs many iterations may stop one iteration
+    earlier or later in float32, where a residual meets the forcing target
+    within rounding. Returns the errors, the largest CG count and, when
+    `timed`, the kernel's and the plain version's times."""
     import numpy as np
     import torch
 
     from dpgo_tpu_torch.ops.stpcg import stpcg_fused_reference
     from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
+    from dpgo_tpu_torch.solvers.mm import stpcg_inputs
 
-    p = solver.probs
-    st = solver.initialize(*init)
-    st, _ = solver.run_steps(st, 0, 3)
-    Q = p.to_tall(st.Z.R).contiguous()
-    nabla = p.reduced_grad_tall(st.Z.t, Q, p.to_tall(st.g_R))
-    grad = p.proj_tall(Q, nabla).contiguous()
-    pgrad = p.precondition_tall(Q, grad).contiguous()
+    check(p.fused_stpcg_supported(), f"{label}: K1 gate closed")
+    args = stpcg_inputs(p, st)
+    Q = args[4]
     N, nd, d = Q.shape
-    Qb = Q.reshape(N, -1, d, d)
-    Sb = Qb @ nabla.reshape(N, -1, d, d).transpose(-1, -2)
-    S = (0.5 * (Sb + Sb.transpose(-1, -2))).reshape(N, nd, d).contiguous()
-    tp = solver.opts.tnt
     kw = dict(max_iters=tp.max_tCG_iterations, kappa_fgr=tp.kappa_fgr,
               theta=tp.theta)
-    args = (p.Hred_d, p.precon_dense, grad, pgrad, Q, S)
     active = torch.ones(N, dtype=torch.bool, device=Q.device)
-    max_err = 0.0
-    # Delta = 100 adds a radius the interior CG iterations run under.
-    for Delta in (1.0, 0.02, 100.0):
+    max_err, k_max = 0.0, 0
+    for Delta in deltas:
         Dl = torch.full((N,), Delta, dtype=torch.float32, device=Q.device)
         h, Hh, nrm, k = stpcg_fused(*args, Dl, active, **kw)
         hr, Hhr, nrmr, kr = stpcg_fused_reference(*args, Dl, active, **kw)
@@ -165,76 +166,155 @@ def phase_stpcg(solver, init):
         h0, hr0 = h[0].cpu().numpy(), hr[0].cpu().numpy()
         err = float(np.abs(h0 - hr0).max())
         max_err = max(max_err, err)
-        k_all = (k == kr).all().item()
-        print(f"K1 stpcg Delta={Delta}: node 0 k = {int(k[0])} (plain "
-              f"{int(kr[0])}), max |h - h_plain| = {err:.3e}, |h|_M = "
-              f"{float(nrm[0]):.6g} (plain {float(nrmr[0]):.6g}); all "
-              f"{N} nodes: same k {k_all}, max |h - h_plain| = "
-              f"{float((h - hr).abs().max()):.3e}")
-        check(int(k[0]) == int(kr[0]), f"K1 k {int(k[0])} != {int(kr[0])}")
+        k_all = bool((k == kr).all())
+        k_max = max(k_max, int(k.max()))
+        print(f"K1 stpcg {label} (D = {d}) Delta={Delta}: node 0 k = "
+              f"{int(k[0])} (plain {int(kr[0])}), max |h - h_plain| = "
+              f"{err:.3e}, |h|_M = {float(nrm[0]):.6g} (plain "
+              f"{float(nrmr[0]):.6g}); all {N} nodes: same k {k_all}, max "
+              f"|h - h_plain| = {float((h - hr).abs().max()):.3e}")
+        if not k_all:
+            print(f"K1 {label} Delta={Delta}: k per node {k.tolist()}, plain "
+                  f"{kr.tolist()}")
+        check(int(k[0]) == int(kr[0]),
+              f"K1 {label}: node 0 k {int(k[0])} != {int(kr[0])}")
         check(np.allclose(h0, hr0, rtol=2e-4, atol=2e-5),
-              "K1 h outside rtol 2e-4 / atol 2e-5")
+              f"K1 {label}: h outside rtol 2e-4 / atol 2e-5")
         check(np.allclose(Hh[0].cpu().numpy(), Hhr[0].cpu().numpy(),
                           rtol=2e-3, atol=2e-4),
-              "K1 Hh outside rtol 2e-3 / atol 2e-4")
+              f"K1 {label}: Hh outside rtol 2e-3 / atol 2e-4")
         check(abs(float(nrm[0]) - float(nrmr[0]))
-              <= 1e-4 * abs(float(nrmr[0])), "K1 |h|_M outside rtol 1e-4")
-        check(bool(torch.isfinite(h).all()), "K1 output not finite")
+              <= 1e-4 * abs(float(nrmr[0])),
+              f"K1 {label}: |h|_M outside rtol 1e-4")
+        check(bool(torch.isfinite(h).all()), f"K1 {label}: output not finite")
     inactive = active.clone()
     inactive[0] = False
     Dl = torch.ones(N, dtype=torch.float32, device=Q.device)
     h, _, _, k = stpcg_fused(*args, Dl, inactive, **kw)
     check(int(k[0]) == 0 and bool((h[0] == 0).all()),
-          "K1 inactive lane did not return a zero step with k = 0")
-    print("K1 inactive lane: zero step, k = 0")
+          f"K1 {label}: inactive lane did not return a zero step with k = 0")
+    if not timed:
+        return dict(max_abs_err=max_err, k_max=k_max)
 
     ms = cuda_ms(lambda: stpcg_fused(*args, Dl, active, **kw), 20)
     plain_ms = cuda_ms(lambda: stpcg_fused_reference(*args, Dl, active, **kw),
                        20)
-    print(f"K1 time, all {N} nodes at nd = {nd}, Delta = 1: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
     D100 = torch.full((N,), 100.0, dtype=torch.float32, device=Q.device)
     k100 = stpcg_fused(*args, D100, active, **kw)[3]
     ms100 = cuda_ms(lambda: stpcg_fused(*args, D100, active, **kw), 20)
     plain100 = cuda_ms(
         lambda: stpcg_fused_reference(*args, D100, active, **kw), 20)
-    print(f"K1 time, all {N} nodes, Delta = 100 (k = {k100.tolist()}): "
-          f"kernel {ms100:.4f} ms, plain {plain100:.4f} ms")
-    return dict(name="stpcg", route="cuda",
-                source="dpgo_tpu_torch/csrc/stpcg.cu",
-                replaces="dpgo_tpu/ops/pallas_stpcg.py:140",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+    print(f"K1 time {label}, all {N} nodes at nd = {nd}: Delta = 1 kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; Delta = 100 (k = "
+          f"{k100.tolist()}) kernel {ms100:.4f} ms, plain {plain100:.4f} ms")
+    return dict(max_abs_err=max_err, k_max=k_max, ms=ms, plain_ms=plain_ms,
+                ms100=ms100, plain_ms100=plain100)
 
 
-def run_slice(solver, init, label):
-    """initialize + ITERS steps with history, then a second, timed run of
-    ITERS steps from the same start. Returns (2f init, 2f history, 2f
-    exact at the end, it/s, host syncs per step)."""
+def run_slice(solver, init, label, steps):
+    """initialize + `steps` steps with history, then a second, timed run of
+    `steps` steps from the same start. Returns (2f init, 2f history, 2f
+    exact at the end, it/s, host syncs per step, final state)."""
     import numpy as np
     import torch
 
     st = solver.initialize(*init)
     f0, g0 = solver._metrics(st)
-    st, _, (fh, gh) = solver.run_steps_history(st, 0, ITERS)
+    st, _, (fh, gh) = solver.run_steps_history(st, 0, steps)
     f_end, g_end = solver._metrics(st)
     fh = fh.cpu().numpy()
     gh = gh.cpu().numpy()
-    check(fh.shape == (ITERS,) and gh.shape == (ITERS,),
+    check(fh.shape == (steps,) and gh.shape == (steps,),
           f"{label}: history shape {fh.shape}")
     check(bool(np.isfinite(fh).all() and np.isfinite(gh).all()),
           f"{label}: non-finite history")
     for name, x in (("Z.t", st.Z.t), ("Z.R", st.Z.R)):
         check(bool(torch.isfinite(x).all()), f"{label}: non-finite {name}")
 
-    st = solver.initialize(*init)
+    st2 = solver.initialize(*init)
     torch.cuda.synchronize()
     syncs0 = solver.syncs.count
     t0 = time.perf_counter()
-    st, _ = solver.run_steps(st, 0, ITERS)
+    st2, _ = solver.run_steps(st2, 0, steps)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    syncs = (solver.syncs.count - syncs0) / ITERS
-    return float(f0), fh, float(f_end), ITERS / secs, syncs
+    syncs = (solver.syncs.count - syncs0) / steps
+    return float(f0), fh, float(f_end), steps / secs, syncs, st
+
+
+def kernel_counts():
+    from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
+    return {"polar_so3": polar_so3_cuda.Launches.count,
+            "stpcg": stpcg_cuda.Launches.by_d[3],
+            "stpcg_d2": stpcg_cuda.Launches.by_d[2]}
+
+
+def run_path(name, solver, init, needs, card, steps=ITERS):
+    """Drive one path through the kernels (launch counts reset just before
+    and read just after), then through the plain versions on the same
+    problems; check decrease, the global oracle, kernel-vs-plain agreement
+    and that every kernel in `needs` was launched. Returns (summary dict,
+    launches, final state of the kernel run)."""
+    import torch
+
+    from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    check(solver.fused_stpcg_engaged(), f"{name}: fused_stpcg_engaged() is "
+          "False")
+    polar_so3_cuda.Launches.count = 0
+    stpcg_cuda.Launches.reset()
+    f0, fh, f_exact, its, syncs, st = run_slice(solver, init, name, steps)
+    launches = kernel_counts()
+    print(f"{name} with kernels: 2f init {f0:.6f}, 2f at {steps} "
+          f"{fh[-1]:.6f} (exact oracle {f_exact:.6f}), {its:.2f} it/s, "
+          f"{syncs:.2f} host syncs/step, launches {launches} over two runs "
+          f"of {steps} steps")
+    for kern in needs:
+        check(launches[kern] > 0, f"{name}: kernel {kern} was not launched: "
+              f"{launches}")
+    check(fh[-1] < f0, f"{name}: 2f did not decrease: {fh[-1]} >= {f0}")
+    check(abs(f_exact - fh[-1]) <= 1e-3 * abs(f_exact),
+          f"{name}: node-objective sum {fh[-1]} disagrees with the global "
+          f"oracle {f_exact}")
+
+    # The same path with the kernels' plain versions, on the same problems.
+    twin = copy.copy(solver)
+    twin.probs = dataclasses.replace(solver.probs, kernels=False)
+    twin.syncs = HostSyncs()
+    before = kernel_counts()
+    _, fhp, _, its_p, syncs_p, _ = run_slice(twin, init, f"{name} plain",
+                                             steps)
+    check(before == kernel_counts(), f"{name}: the plain run launched a "
+          "kernel")
+    rel = abs(fh[-1] - fhp[-1]) / abs(fhp[-1])
+    print(f"{name} with plain versions: 2f at {steps} {fhp[-1]:.6f}, "
+          f"{its_p:.2f} it/s, {syncs_p:.2f} host syncs/step; kernel vs plain "
+          f"2f relative difference {rel:.3e}")
+    check(rel <= 1e-3, f"{name}: kernel and plain runs disagree: {rel} > "
+          "1e-3")
+    # Relative to the decrease so far. On manhattan the final 2f of a run
+    # with the refinement off lies within 5e-3 of the decrease from the
+    # kernel run's, as near as rounding puts two kernel runs, but at step 1
+    # it lies 0.41 of the decrease away; rounding moves step 1 by up to
+    # 2.6e-2 (index_add_ scatters are not deterministic on the card, and a
+    # flipped branch on one node moves 2f).
+    dec = abs(fh - fhp) / (f0 - fhp)
+    print(f"{name}: kernel vs plain 2f difference relative to the decrease "
+          f"so far: {dec[0]:.3e} at step 1, {dec[-1]:.3e} at step {steps}, "
+          f"max {dec.max():.3e}")
+    check(dec[0] <= 0.1, f"{name}: kernel and plain runs part at step 1: "
+          f"{dec[0]} of the decrease > 0.1")
+    del twin
+    torch.cuda.synchronize()
+    summary = {"steps": steps, "it_s": its, "plain_it_s": its_p,
+               "f2_init": f0, "f2_final": float(fh[-1]),
+               "f2_final_plain": float(fhp[-1]), "f2_exact": f_exact,
+               "f2_step1_vs_plain_of_decrease": float(dec[0]),
+               "host_syncs_per_step": syncs,
+               "plain_host_syncs_per_step": syncs_p, "launches": launches,
+               "card": card}
+    return summary, launches, st
 
 
 def main() -> int:
@@ -249,12 +329,14 @@ def main() -> int:
 
     import dpgo_tpu_torch  # noqa: F401  (sets true-f32 matmuls)
     from dpgo_tpu_torch.driver import DPGOSolver
-    from dpgo_tpu_torch.io.g2o import read_g2o_file
-    from dpgo_tpu_torch.ops import _build, polar_so3_cuda, stpcg_cuda
+    from dpgo_tpu_torch.io.g2o import read_g2o_file, write_g2o_file
+    from dpgo_tpu_torch.losses import Loss, loss_weight
+    from dpgo_tpu_torch.objective import edge_sqnorms
+    from dpgo_tpu_torch.ops import _build
     from dpgo_tpu_torch.sesync import (chordal_initialization,
                                        recover_translations_global)
     from dpgo_tpu_torch.solvers.mm import MMOptions
-    from dpgo_tpu_torch.utils import HostSyncs
+    from dpgo_tpu_torch.synthetic import manhattan_world, with_outliers
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -264,73 +346,130 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     _build.load(verbose=True)
     print(f"kernel build and load: {time.perf_counter() - t0:.2f} s")
 
-    rng = np.random.default_rng(SEED)
-    k2 = phase_polar_so3(rng, dev)
+    k2 = phase_polar_so3(np.random.default_rng(SEED), dev)
 
-    path = os.path.join(root, DATASET)
-    meas = read_g2o_file(path)
-    t0 = time.perf_counter()
-    opts = MMOptions(accelerated=True)
-    solver = DPGOSolver(meas, num_nodes=NUM_NODES, opts=opts,
-                        dtype=torch.float32, device=dev)
-    R0 = chordal_initialization(meas)
-    init = (recover_translations_global(meas, R0), R0)
-    torch.cuda.synchronize()
-    print(f"slice: {DATASET}, {meas.num_poses} poses, {len(meas)} edges, "
-          f"{NUM_NODES} nodes x {solver.mg.n0_max} poses, d = {meas.d}, "
-          f"float32; problem build + chordal init "
-          f"{time.perf_counter() - t0:.1f} s")
-    check(solver.fused_stpcg_engaged(), "fused_stpcg_engaged() is False")
+    def make_solver(meas, label, **kw):
+        t0 = time.perf_counter()
+        solver = DPGOSolver(meas, num_nodes=NUM_NODES, dtype=torch.float32,
+                            device=dev, **kw)
+        R0 = chordal_initialization(meas)
+        init = (recover_translations_global(meas, R0), R0)
+        torch.cuda.synchronize()
+        print(f"{label}: {meas.num_poses} poses, {len(meas)} edges, "
+              f"{NUM_NODES} nodes x {solver.mg.n0_max} poses, d = {meas.d}, "
+              f"float32; problem build + chordal init "
+              f"{time.perf_counter() - t0:.1f} s")
+        return solver, init
 
-    k1 = phase_stpcg(solver, init)
+    paths, launches, k1 = {}, {}, {}
+    tp = MMOptions().tnt
 
-    # The main path, through the kernels: every launch from here on counts.
-    polar_so3_cuda.Launches.count = 0
-    stpcg_cuda.Launches.count = 0
-    f0, fh, f_exact, its, syncs = run_slice(solver, init, "kernels")
-    launches = {"polar_so3": polar_so3_cuda.Launches.count,
-                "stpcg": stpcg_cuda.Launches.count}
-    print(f"slice with kernels: 2f init {f0:.6f}, 2f at {ITERS} "
-          f"{fh[-1]:.6f} (exact oracle {f_exact:.6f}), {its:.2f} it/s, "
-          f"{syncs:.2f} host syncs/step, launches {launches} over two runs "
-          f"of {ITERS} steps")
-    check(launches["polar_so3"] > 0 and launches["stpcg"] > 0,
-          f"a kernel of the path was not launched: {launches}")
-    check(fh[-1] < f0, f"2f did not decrease: {fh[-1]} >= {f0}")
-    check(abs(f_exact - fh[-1]) <= 1e-3 * abs(f_exact),
-          f"node-objective sum {fh[-1]} disagrees with the global oracle "
-          f"{f_exact}")
+    # Path 1: rim_synth, trivial loss (K1 at D = 3, K2).
+    rim = read_g2o_file(os.path.join(root, DATASET))
+    solver, init = make_solver(rim, f"rim: {DATASET}",
+                               opts=MMOptions(accelerated=True))
+    st, _ = solver.run_steps(solver.initialize(*init), 0, 3)
+    k1["rim"] = phase_stpcg("rim", solver.probs, st, tp)
+    paths["rim"], launches["rim"], _ = run_path(
+        "rim", solver, init, ("polar_so3", "stpcg"), card)
+    del solver, st
 
-    # The same slice with the kernels' plain versions, on the same problem.
-    twin = copy.copy(solver)
-    twin.probs = dataclasses.replace(solver.probs, kernels=False)
-    twin.syncs = HostSyncs()
-    before = (polar_so3_cuda.Launches.count, stpcg_cuda.Launches.count)
-    f0p, fhp, f_exact_p, its_p, syncs_p = run_slice(twin, init, "plain")
-    check(before == (polar_so3_cuda.Launches.count,
-                     stpcg_cuda.Launches.count),
-          "the plain run launched a kernel")
-    rel = abs(fh[-1] - fhp[-1]) / abs(fhp[-1])
-    print(f"slice with plain versions: 2f at {ITERS} {fhp[-1]:.6f}, "
-          f"{its_p:.2f} it/s, {syncs_p:.2f} host syncs/step; kernel vs plain "
-          f"2f relative difference {rel:.3e}")
-    check(rel <= 1e-3, f"kernel and plain runs disagree: {rel} > 1e-3")
+    # Path 2: 2-D Manhattan world through the EDGE_SE2 reader (K1 at D = 2).
+    meas2, t_true, R_true = manhattan_world(
+        np.random.default_rng(SEED + 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        g2o = os.path.join(tmp, "manhattan.g2o")
+        write_g2o_file(g2o, t_true, R_true, meas2)
+        meas2 = read_g2o_file(g2o)
+    check(meas2.d == 2, "the EDGE_SE2 file did not read back as d = 2")
+    solver, init = make_solver(meas2, "manhattan: 2-D Manhattan world "
+                               f"(seed {SEED + 1})",
+                               opts=MMOptions(accelerated=True))
+    st, _ = solver.run_steps(solver.initialize(*init), 0, 3)
+    k1["manhattan"] = phase_stpcg("manhattan", solver.probs, st, tp)
+    # Near the chordal start the preconditioner is close to exact and CG
+    # ends after one iteration on every node; from the true rotations turned
+    # by N(0, 0.3) rad per pose, at a radius CG stays inside, it runs more.
+    rng = np.random.default_rng(SEED + 3)
+    th = rng.normal(scale=0.3, size=meas2.num_poses)
+    c, s = np.cos(th), np.sin(th)
+    turn = np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)
+    st = solver.initialize(None, R_true @ turn)
+    k1["manhattan_far"] = phase_stpcg("manhattan, far start", solver.probs,
+                                      st, tp, deltas=(1e4,), timed=False)
+    check(k1["manhattan_far"]["k_max"] > 1, "manhattan: K1 ran no second "
+          "CG iteration at the far start")
+    paths["manhattan"], launches["manhattan"], _ = run_path(
+        "manhattan", solver, init, ("stpcg_d2",), card)
+    del solver, st
 
-    k2["launches"] = launches["polar_so3"]
-    k1["launches"] = launches["stpcg"]
-    kernels = [{key: kern[key] for key in
-                ("name", "route", "source", "replaces", "launches",
-                 "max_abs_err", "ms", "plain_ms")} for kern in (k2, k1)]
-    print(json.dumps({"slice": {"it_s": its, "plain_it_s": its_p,
-                                "f2_init": f0, "f2_final": float(fh[-1]),
-                                "f2_final_plain": float(fhp[-1]),
-                                "host_syncs_per_step": syncs,
-                                "card": card}}))
+    # Path 3: rim_synth with outliers, Huber + dynamic rescale (K1 at D = 3
+    # on the reweighted Hred, K2).
+    meas3, bad = with_outliers(rim, np.random.default_rng(SEED + 2),
+                               NUM_NODES)
+    opts3 = MMOptions(accelerated=True, rescale="dynamic")
+    solver, init = make_solver(meas3, f"robust: {DATASET} with {len(bad)} "
+                               "outlier inter-node edges, Huber, dynamic "
+                               "rescale", opts=opts3, loss=Loss.HUBER,
+                               loss_reg=LOSS_REG)
+    st, _ = solver.run_steps(solver.initialize(*init), 0,
+                             opts3.max_rescale_count + 3)
+    pw = solver.problems(st)
+    check(pw.dynamic and bool((st.scale_w < 1).any()),
+          "robust: no rescale before the K1 phase")
+    k1["robust"] = phase_stpcg("robust (reweighted Hred)", pw, st, tp)
+    del pw
+    paths["robust"], launches["robust"], st = run_path(
+        "robust", solver, init, ("polar_so3", "stpcg"), card)
+    sw_min = float(st.scale_w.min())
+    t, R = solver.gather_global(st)
+    w = loss_weight(Loss.HUBER, edge_sqnorms(solver.edges, t, R), LOSS_REG)
+    is_bad = torch.zeros(len(meas3), dtype=torch.bool, device=dev)
+    is_bad[torch.as_tensor(bad, device=dev)] = True
+    w_out = float(w[is_bad].mean())
+    w_in = float(w[solver.edges.is_inter & ~is_bad].mean())
+    print(f"robust: min scale_w {sw_min:.4g}; mean final Huber weight "
+          f"{w_out:.4g} on the {len(bad)} outliers, {w_in:.4g} on the "
+          f"{int((solver.edges.is_inter & ~is_bad).sum())} inlier inter-node "
+          "edges")
+    check(sw_min < 1.0, "robust: dynamic rescale never fired")
+    check(w_out < w_in, f"robust: outlier weight {w_out} not below inlier "
+          f"weight {w_in}")
+    paths["robust"].update(min_scale_w=sw_min, outlier_weight=w_out,
+                           inlier_weight=w_in)
+    del solver, st
+
+    def total(kern):
+        return sum(c[kern] for c in launches.values())
+
+    def entry(name, source, replaces, stats):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": total(name),
+                "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
+                "plain_ms": stats["plain_ms"],
+                "launches_by_path": {p: c[name]
+                                     for p, c in launches.items()}}
+
+    k1_d3 = dict(k1["rim"], max_abs_err=max(k1["rim"]["max_abs_err"],
+                                            k1["robust"]["max_abs_err"]))
+    k1_d2 = dict(k1["manhattan"], max_abs_err=max(
+        k1["manhattan"]["max_abs_err"], k1["manhattan_far"]["max_abs_err"]))
+    kernels = [
+        entry("polar_so3", "dpgo_tpu_torch/csrc/polar_so3.cu",
+              "dpgo_tpu/ops/pallas_so3.py:70", k2),
+        entry("stpcg", "dpgo_tpu_torch/csrc/stpcg.cu",
+              "dpgo_tpu/ops/pallas_stpcg.py:140", k1_d3),
+        entry("stpcg_d2", "dpgo_tpu_torch/csrc/stpcg.cu",
+              "dpgo_tpu/ops/pallas_stpcg.py:140", k1_d2),
+    ]
+    print(json.dumps({"paths": paths, "k1_phases": k1,
+                      "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

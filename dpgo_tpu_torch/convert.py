@@ -3,9 +3,10 @@
 `problem_from_numpy` and `state_from_numpy` take the leaves of a
 dpgo_tpu `NodeProblem` / `MMState` as numpy arrays keyed by field name (the
 node-stacked pytrees converted with `np.asarray`) and build the port's
-counterparts, so both packages can start from one state. Fields the port
-does not carry (fused-kernel panels, segment path, dynamic rescale,
-Anderson history) are ignored.
+counterparts, so both packages can start from one state. Dense problems at
+d = 2 and 3 are taken, reweighted (dynamic) ones included. Fields the port
+does not carry (fused-kernel panels, the one-hot scatter, the block-Jacobi
+preconditioner, segment path, Anderson history) are ignored.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ from dpgo_tpu_torch.solvers.mm import MMState
 _STATE_FIELDS = ("g_t", "g_R", "f", "fobj", "Df_t", "Df_R", "g_t_prev",
                  "g_R_prev", "Df_t_prev", "Df_R_prev", "fobj_prev",
                  "gradFnorm", "Gk", "Fk0", "Fk1", "s", "s_next", "gamma",
-                 "z_rt", "z_rR", "z_us", "z_Es")
-_STATE_INT_FIELDS = ("hits0", "hits1", "osc_buf", "num_osc")
+                 "z_rt", "z_rR", "z_us", "z_Es", "scale_w")
+_STATE_INT_FIELDS = ("hits0", "hits1", "osc_buf", "num_osc",
+                     "rescale_count")
 
 
 def problem_from_numpy(arrays: dict, device="cpu",
@@ -30,17 +32,15 @@ def problem_from_numpy(arrays: dict, device="cpu",
 
     `arrays` holds every array field of the port's NodeProblem plus the
     static fields d, xi, loss (a Loss of either package, or its value
-    string), loss_reg and dense."""
-    if not bool(arrays["dense"]):
+    string), loss_reg, dense and dynamic."""
+    if not bool(arrays["dense"]) or bool(arrays.get("seg", False)):
         raise NotImplementedError("only the dense operator path is ported")
-    if bool(arrays.get("dynamic", False)) or bool(arrays.get("seg", False)):
-        raise NotImplementedError("dynamic rescale and the segment path are "
-                                  "not ported yet")
     loss = arrays["loss"]
     loss = Loss(getattr(loss, "value", loss))
     return make_problem(arrays, d=int(arrays["d"]), xi=float(arrays["xi"]),
                         loss=loss, loss_reg=float(arrays["loss_reg"]),
-                        dense=True, device=device, dtype=dtype)
+                        dense=True, dynamic=bool(arrays["dynamic"]),
+                        device=device, dtype=dtype)
 
 
 def _node_state(z: dict, device, dtype) -> NodeState:

@@ -8,33 +8,37 @@
 //
 //   hess(v)   = proj(Hred v - S_p v_p)      (S_p = sym(Q_p nabla_p^T))
 //   precon(v) = proj(P v)
-//   proj(v)   = v - sym(Q_p V_p^T) Q_p      per 3x3 pose block p
+//   proj(v)   = v - sym(Q_p V_p^T) Q_p      per D x D pose block p
 //
 // with trust-region boundary, negative-curvature and Hessian-kernel exits and
 // the forcing target r0 min(kappa, r0^theta) (computed by the wrapper, as the
 // JAX package computes it outside its kernel). An inactive node returns a
-// zero step with k = 0.
+// zero step with k = 0. The kernel is instantiated for D = 2 (SE(2) graphs)
+// and D = 3 (SE(3) graphs), as the Pallas kernel is generic in d.
 //
 // Design: one thread block per node runs the node's whole CG loop and exits
 // on the node's own condition, which gives the per-node result of the JAX
-// package's vmapped while_loop. Vectors are tall [nd, 3] float32 (nd = 3 n);
+// package's vmapped while_loop. Vectors are tall [nd, D] float32 (nd = D n);
 // the working vectors r, v, p and H p live in a global scratch buffer the
 // wrapper allocates, and the outputs h, H h double as the s, H s iterates.
-// Each CG iteration computes two matvecs [nd x nd] . [nd x 3] in this body
-// (no cuBLAS): the input vector is staged in shared memory as three
-// contiguous columns, each warp takes whole operator rows and streams them
-// from global memory with 16-byte loads, 8 in flight per lane, then reduces
-// across its lanes. The per-pose curvature correction, tangent projection and
-// the inner products are fused into one pass per matvec, and the inner
-// products use fixed-order block tree reductions (deterministic).
+// Each CG iteration computes two matvecs [nd x nd] . [nd x D] in this body
+// (no cuBLAS): the input vector is staged in shared memory as D contiguous
+// columns, each warp takes whole operator rows and streams them from global
+// memory with the widest loads the row alignment allows (16 bytes when nd is
+// a multiple of 4, 8 bytes when it is even, as at D = 2 with an odd pose
+// count, else 4), 128 bytes in flight per lane, then reduces across its
+// lanes. The per-pose curvature correction, tangent projection and the inner
+// products are fused into one pass per matvec, and the inner products use
+// fixed-order block tree reductions (deterministic).
 //
-// Bound: the operator stream. At the rim_synth slice (640 poses per node,
-// nd = 1920) each CG iteration reads Hred and P, 2 x 14.7 MB = 29.5 MB per
-// node, for ~22 MFLOP: 0.75 flop per byte, far below the card's balance. With
-// 16 nodes only 16 of the 132 SMs stream, so this first version is bound by
-// per-SM bandwidth (bytes in flight per SM), not by HBM. Spreading one node
-// over a thread-block cluster or a cooperative grid, and keeping vectors in
-// shared memory, are later work.
+// Bound: the operator stream. At the rim_synth slice (D = 3, 640 poses per
+// node, nd = 1920) each CG iteration reads Hred and P, 2 x 14.7 MB = 29.5 MB
+// per node, for ~22 MFLOP: 0.75 flop per byte, far below the card's balance
+// (at D = 2, 625 poses, 2 x 6.25 MB for 0.5 flop per byte). With 16 nodes
+// only 16 of the 132 SMs stream, so this first version is bound by per-SM
+// bandwidth (bytes in flight per SM), not by HBM. Spreading one node over a
+// thread-block cluster or a cooperative grid, and keeping vectors in shared
+// memory, are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,8 +47,8 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRed = 8;   // most sums one block reduction carries
-constexpr int kUnroll = 8;   // 16-byte operator loads in flight per lane
+constexpr int kMaxRed = 8;        // most sums one block reduction carries
+constexpr int kBytesInFlight = 128;  // operator bytes in flight per lane
 constexpr float kEps = 1e-8f;
 
 template <int K>
@@ -76,97 +80,126 @@ __device__ __forceinline__ void block_sum(float (&v)[K], float* red,
   for (int k = 0; k < K; ++k) v[k] = bcast[k];
 }
 
-// y[row, c] = sum_j M[row, j] x[j, c] for c < 3; M [nd, nd] row-major,
-// x and y tall [nd, 3]. xs: 3 nd floats of shared memory (16-byte aligned).
-__device__ void matvec3(const float* __restrict__ M, const float* x,
-                        float* y, float* xs, int nd) {
+// Vector types of V floats and their lanes (V = 4, 2, 1).
+template <int V> struct Vec;
+template <> struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T zero() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  static __device__ __forceinline__ float dot(const T& a, const T& b) {
+    return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+  }
+};
+template <> struct Vec<2> {
+  using T = float2;
+  static __device__ __forceinline__ T zero() { return make_float2(0.f, 0.f); }
+  static __device__ __forceinline__ float dot(const T& a, const T& b) {
+    return a.x * b.x + a.y * b.y;
+  }
+};
+template <> struct Vec<1> {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.f; }
+  static __device__ __forceinline__ float dot(const T& a, const T& b) {
+    return a * b;
+  }
+};
+
+// acc[c] += lane's share of sum_j Mr[j] xs[c nd + j], c < D, streaming the
+// row Mr with V-float loads (Mr and every column of xs V-float aligned).
+template <int D, int V>
+__device__ __forceinline__ void row_dot(const float* __restrict__ Mr,
+                                        const float* xs, int nd, int lane,
+                                        float (&acc)[D]) {
+  using VT = typename Vec<V>::T;
+  constexpr int kU = kBytesInFlight / (4 * V);
+  const VT* Mv = reinterpret_cast<const VT*>(Mr);
+  const int nv = nd / V;
+  for (int q0 = lane; q0 < nv; q0 += 32 * kU) {
+    VT m[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = q0 + 32 * u;
+      m[u] = q < nv ? __ldg(Mv + q) : Vec<V>::zero();
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = q0 + 32 * u;
+      if (q < nv) {
+#pragma unroll
+        for (int c = 0; c < D; ++c)
+          acc[c] += Vec<V>::dot(
+              m[u], reinterpret_cast<const VT*>(xs + c * nd)[q]);
+      }
+    }
+  }
+}
+
+// y[row, c] = sum_j M[row, j] x[j, c] for c < D; M [nd, nd] row-major,
+// x and y tall [nd, D]. xs: D nd floats of shared memory (16-byte aligned).
+template <int D>
+__device__ void matvec(const float* __restrict__ M, const float* x, float* y,
+                       float* xs, int nd) {
   __syncthreads();  // x is complete; earlier readers of xs are done
   for (int i = threadIdx.x; i < nd; i += kThreads) {
-    xs[i] = x[i * 3];
-    xs[nd + i] = x[i * 3 + 1];
-    xs[2 * nd + i] = x[i * 3 + 2];
+#pragma unroll
+    for (int c = 0; c < D; ++c) xs[c * nd + i] = x[i * D + c];
   }
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool vec4 = (nd & 3) == 0;
   for (int row = warp; row < nd; row += kWarps) {
     const float* Mr = M + (size_t)row * nd;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    if (vec4) {
-      const float4* M4 = reinterpret_cast<const float4*>(Mr);
-      const float4* x0 = reinterpret_cast<const float4*>(xs);
-      const float4* x1 = reinterpret_cast<const float4*>(xs + nd);
-      const float4* x2 = reinterpret_cast<const float4*>(xs + 2 * nd);
-      const int n4 = nd >> 2;
-      for (int q0 = lane; q0 < n4; q0 += 32 * kUnroll) {
-        float4 m[kUnroll];
+    float acc[D];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int q = q0 + 32 * u;
-          m[u] = q < n4 ? __ldg(M4 + q) : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
+    for (int c = 0; c < D; ++c) acc[c] = 0.f;
+    // nd % 4 == 0 keeps every row (and the node's [nd, nd] block) 16-byte
+    // aligned; nd even keeps them 8-byte aligned.
+    if ((nd & 3) == 0)
+      row_dot<D, 4>(Mr, xs, nd, lane, acc);
+    else if ((nd & 1) == 0)
+      row_dot<D, 2>(Mr, xs, nd, lane, acc);
+    else
+      row_dot<D, 1>(Mr, xs, nd, lane, acc);
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int q = q0 + 32 * u;
-          if (q < n4) {
-            const float4 b0 = x0[q], b1 = x1[q], b2 = x2[q];
-            a0 += m[u].x * b0.x + m[u].y * b0.y + m[u].z * b0.z
-                + m[u].w * b0.w;
-            a1 += m[u].x * b1.x + m[u].y * b1.y + m[u].z * b1.z
-                + m[u].w * b1.w;
-            a2 += m[u].x * b2.x + m[u].y * b2.y + m[u].z * b2.z
-                + m[u].w * b2.w;
-          }
-        }
-      }
-    } else {
-      for (int j = lane; j < nd; j += 32) {
-        const float m = __ldg(Mr + j);
-        a0 += m * xs[j];
-        a1 += m * xs[nd + j];
-        a2 += m * xs[2 * nd + j];
-      }
-    }
+    for (int c = 0; c < D; ++c)
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      a0 += __shfl_xor_sync(0xffffffffu, a0, o);
-      a1 += __shfl_xor_sync(0xffffffffu, a1, o);
-      a2 += __shfl_xor_sync(0xffffffffu, a2, o);
-    }
+      for (int o = 16; o > 0; o >>= 1)
+        acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], o);
     if (lane == 0) {
-      y[row * 3] = a0;
-      y[row * 3 + 1] = a1;
-      y[row * 3 + 2] = a2;
+#pragma unroll
+      for (int c = 0; c < D; ++c) y[row * D + c] = acc[c];
     }
   }
   __syncthreads();
 }
 
-// V <- V - sym(Q V^T) Q on one row-major 3x3 block.
-__device__ __forceinline__ void proj3(const float* Qb, float* V) {
-  float T[9];
+// V <- V - sym(Q V^T) Q on one row-major D x D block.
+template <int D>
+__device__ __forceinline__ void proj(const float* Qb, float* V) {
+  float T[D * D];
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
+  for (int a = 0; a < D; ++a)
 #pragma unroll
-    for (int b = 0; b < 3; ++b)
-      T[a * 3 + b] = Qb[a * 3] * V[b * 3] + Qb[a * 3 + 1] * V[b * 3 + 1]
-                   + Qb[a * 3 + 2] * V[b * 3 + 2];
-  float Ts[9];
+    for (int b = 0; b < D; ++b) {
+      float t = 0.f;
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
+      for (int k = 0; k < D; ++k) t += Qb[a * D + k] * V[b * D + k];
+      T[a * D + b] = t;
+    }
+  float out[D * D];
 #pragma unroll
-    for (int b = 0; b < 3; ++b)
-      Ts[a * 3 + b] = 0.5f * (T[a * 3 + b] + T[b * 3 + a]);
-  float out[9];
+  for (int a = 0; a < D; ++a)
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
+    for (int c = 0; c < D; ++c) {
+      float t = 0.f;
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      out[a * 3 + c] = V[a * 3 + c]
-          - (Ts[a * 3] * Qb[c] + Ts[a * 3 + 1] * Qb[3 + c]
-             + Ts[a * 3 + 2] * Qb[6 + c]);
+      for (int k = 0; k < D; ++k)
+        t += 0.5f * (T[a * D + k] + T[k * D + a]) * Qb[k * D + c];
+      out[a * D + c] = V[a * D + c] - t;
+    }
 #pragma unroll
-  for (int i = 0; i < 9; ++i) V[i] = out[i];
+  for (int i = 0; i < D * D; ++i) V[i] = out[i];
 }
 
 __device__ __forceinline__ float sigma_of(float smp, float pk_M_2,
@@ -175,6 +208,7 @@ __device__ __forceinline__ float sigma_of(float smp, float pk_M_2,
   return (-smp + sqrtf(fmaxf(disc, 0.f))) / pk_M_2;
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 stpcg_kernel(const float* __restrict__ H, const float* __restrict__ P,
              const float* __restrict__ g, const float* __restrict__ v0,
@@ -184,14 +218,15 @@ stpcg_kernel(const float* __restrict__ H, const float* __restrict__ P,
              const float* __restrict__ target_in, float* h_out,
              float* Hh_out, float* __restrict__ norm_res,
              int* __restrict__ k_res, float* scratch, int nd, int max_iters) {
+  constexpr int B = D * D;  // floats per pose block
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
-  float* red = xs + 3 * nd;
+  float* red = xs + D * nd;
   float* bcast = red + kWarps * kMaxRed;
 
   const int node = blockIdx.x;
-  const int len = nd * 3;
-  const int npose = nd / 3;
+  const int len = nd * D;
+  const int npose = nd / D;
   const size_t voff = (size_t)node * len;
   const float* Hn = H + (size_t)node * nd * nd;
   const float* Pn = P + (size_t)node * nd * nd;
@@ -231,27 +266,30 @@ stpcg_kernel(const float* __restrict__ H, const float* __restrict__ P,
   while (!done && k < max_iters) {
     // Hp = proj(Hred p - S_p p_p), fused with <p,Hp>, <p,p>, <Hp,Hp>,
     // <p,r> and <r,v>.
-    matvec3(Hn, p, Hp, xs, nd);
+    matvec<D>(Hn, p, Hp, xs, nd);
     float sums[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
     for (int q = threadIdx.x; q < npose; q += kThreads) {
-      const int b = q * 9;
-      float pb[9], E[9], Sb[9], Qb[9];
+      const int b = q * B;
+      float pb[B], E[B], Sb[B], Qb[B];
 #pragma unroll
-      for (int i = 0; i < 9; ++i) {
+      for (int i = 0; i < B; ++i) {
         pb[i] = p[b + i];
         E[i] = Hp[b + i];
         Sb[i] = Sn[b + i];
         Qb[i] = Qn[b + i];
       }
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
+      for (int a = 0; a < D; ++a)
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-          E[a * 3 + c] -= Sb[a * 3] * pb[c] + Sb[a * 3 + 1] * pb[3 + c]
-                        + Sb[a * 3 + 2] * pb[6 + c];
-      proj3(Qb, E);
+        for (int c = 0; c < D; ++c) {
+          float t = 0.f;
 #pragma unroll
-      for (int i = 0; i < 9; ++i) {
+          for (int kk = 0; kk < D; ++kk) t += Sb[a * D + kk] * pb[kk * D + c];
+          E[a * D + c] -= t;
+        }
+      proj<D>(Qb, E);
+#pragma unroll
+      for (int i = 0; i < B; ++i) {
         Hp[b + i] = E[i];
         const float rb = r[b + i], vb = v[b + i];
         sums[0] += pb[i] * E[i];
@@ -294,19 +332,19 @@ stpcg_kernel(const float* __restrict__ H, const float* __restrict__ P,
       Hs[i] += alpha * hpi;
       r[i] += alpha * hpi;
     }
-    matvec3(Pn, r, v, xs, nd);
+    matvec<D>(Pn, r, v, xs, nd);
     float rvn[1] = {0.f};
     for (int q = threadIdx.x; q < npose; q += kThreads) {
-      const int b = q * 9;
-      float vb[9], Qb[9];
+      const int b = q * B;
+      float vb[B], Qb[B];
 #pragma unroll
-      for (int i = 0; i < 9; ++i) {
+      for (int i = 0; i < B; ++i) {
         vb[i] = v[b + i];
         Qb[i] = Qn[b + i];
       }
-      proj3(Qb, vb);
+      proj<D>(Qb, vb);
 #pragma unroll
-      for (int i = 0; i < 9; ++i) {
+      for (int i = 0; i < B; ++i) {
         v[b + i] = vb[i];
         rvn[0] += r[b + i] * vb[i];
       }
@@ -329,26 +367,45 @@ stpcg_kernel(const float* __restrict__ H, const float* __restrict__ P,
   }
 }
 
-}  // namespace
-
-extern "C" int dpgo_stpcg(const void* H, const void* P, const void* g,
-                          const void* v0, const void* Q, const void* S,
-                          const void* Delta, const void* active,
-                          const void* target, void* h, void* Hh, void* norm,
-                          void* k, void* scratch, int N, int nd,
-                          int max_iters, void* stream) {
-  if (N <= 0 || nd <= 0) return (int)cudaGetLastError();
+template <int D>
+int launch(const void* H, const void* P, const void* g, const void* v0,
+           const void* Q, const void* S, const void* Delta,
+           const void* active, const void* target, void* h, void* Hh,
+           void* norm, void* k, void* scratch, int N, int nd, int max_iters,
+           cudaStream_t stream) {
   const size_t smem =
-      (3 * (size_t)nd + kWarps * kMaxRed + kMaxRed) * sizeof(float);
+      (D * (size_t)nd + kWarps * kMaxRed + kMaxRed) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        stpcg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        stpcg_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  stpcg_kernel<<<N, kThreads, smem, (cudaStream_t)stream>>>(
+  stpcg_kernel<D><<<N, kThreads, smem, stream>>>(
       (const float*)H, (const float*)P, (const float*)g, (const float*)v0,
       (const float*)Q, (const float*)S, (const float*)Delta,
       (const float*)active, (const float*)target, (float*)h, (float*)Hh,
       (float*)norm, (int*)k, (float*)scratch, nd, max_iters);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// d selects the instantiation (2 or 3); any other d returns
+// cudaErrorInvalidValue without launching.
+extern "C" int dpgo_stpcg(const void* H, const void* P, const void* g,
+                          const void* v0, const void* Q, const void* S,
+                          const void* Delta, const void* active,
+                          const void* target, void* h, void* Hh, void* norm,
+                          void* k, void* scratch, int N, int nd, int d,
+                          int max_iters, void* stream) {
+  if (N <= 0 || nd <= 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (d == 2)
+    return launch<2>(H, P, g, v0, Q, S, Delta, active, target, h, Hh, norm,
+                     k, scratch, N, nd, max_iters, st);
+  if (d == 3)
+    return launch<3>(H, P, g, v0, Q, S, Delta, active, target, h, Hh, norm,
+                     k, scratch, N, nd, max_iters, st);
+  return (int)cudaErrorInvalidValue;
 }

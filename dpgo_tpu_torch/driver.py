@@ -39,8 +39,9 @@ def communicate(st: MMState, halo_owner, halo_lpose, halo_dc=None) -> MMState:
 class DPGOSolver:
     """Distributed PGO on one device: batched node axis, eager step.
 
-    Ported scope: AMM-PGO#, dense per-node operators, trivial loss, static
-    rescale, centralized chordal initialization. A problem copy with
+    Ported scope: AMM-PGO#, dense per-node operators, d = 2 and 3, every
+    loss kernel with static or dynamic rescale, centralized chordal
+    initialization. A problem copy with
     `dataclasses.replace(solver.probs, kernels=False)` runs the plain torch
     versions of the two CUDA kernels on any device."""
 
@@ -85,6 +86,10 @@ class DPGOSolver:
         self.halo_dc = None
         # Device-to-host flag reads of the iterate (see HostSyncs).
         self.syncs = HostSyncs()
+        # (scale_w, problems) of the last update: under dynamic rescale the
+        # update builds the reweighted problems once per step and the next
+        # iterate runs on them.
+        self._reweighted = (None, self.probs)
 
     # ----------------------------------------------------------- init
 
@@ -154,17 +159,34 @@ class DPGOSolver:
         st = init_state(self.probs, self.pack_global(t, R), self.opts)
         st = communicate(st, self.halo_owner, self.halo_lpose, self.halo_dc)
         st = st.replace(Z_prev=st.Z)
-        return mm_mod.update_state(self.probs, st, self.opts, 0, first=True)
+        return self._update(st, 0, first=True)
 
     # ----------------------------------------------------------- stepping
 
+    def _update(self, st: MMState, k: int, first: bool) -> MMState:
+        """Dynamic-rescale trigger, then the update on the problems
+        reweighted by the new weights (the base problems when static)."""
+        st = mm_mod.rescale(self.probs, st, self.opts)
+        probs = mm_mod.reweighted_problems(self.probs, st, self.opts)
+        self._reweighted = (st.scale_w, probs)
+        return mm_mod.update_state(probs, st, self.opts, k, first=first)
+
+    def problems(self, st: MMState):
+        """The problems the next iterate runs on: the base problems, or
+        under dynamic rescale those reweighted by the state's weights
+        (reused from the update that produced `st`)."""
+        scale_w, probs = self._reweighted
+        if scale_w is st.scale_w:
+            return probs
+        return mm_mod.reweighted_problems(self.probs, st, self.opts)
+
     def _step(self, st: MMState, k: int) -> MMState:
-        st = mm_mod.iterate_amm(self.probs, st, self.opts, k, self.syncs)
+        st = mm_mod.iterate_amm(self.problems(st), st, self.opts, k,
+                                self.syncs)
         st = communicate(st, self.halo_owner, self.halo_lpose, self.halo_dc)
         # Z_prev (stamped inside iterate) is the previous anchor including
         # the halo of the previous round's communicate.
-        return mm_mod.update_state(self.probs, st, self.opts, k + 1,
-                                   first=False)
+        return self._update(st, k + 1, first=False)
 
     def run_steps(self, st: MMState, k0: int, num_steps: int):
         """`num_steps` solver iterations; returns (state, k0 + num_steps)."""
@@ -199,7 +221,7 @@ class DPGOSolver:
     def fused_stpcg_engaged(self) -> bool:
         """True iff the TNT refinement's trust-region subproblem runs in the
         fused single-launch STPCG (kernel K1): the Hopper gate (dense path,
-        d = 3, float32, CUDA device) and refinement enabled. Mirrors
+        d = 2 or 3, float32, CUDA device) and refinement enabled. Mirrors
         mm._make_tnt_model_dense."""
         tnt = self.opts.tnt
         return (self.probs.fused_stpcg_supported()

@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-Every `csrc/*.cu` source is compiled by nvcc into ONE shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers, so the build takes
+Every `csrc/*.cu` source is compiled by its own nvcc process, all started
+together, and the objects are linked into ONE shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so the build takes
 seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/dpgo_tpu_torch/libdpgo_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c \
+         -Xcompiler -fPIC -o <name>.o csrc/<name>.cu        # one per source
+    nvcc -shared -o build/dpgo_tpu_torch/libdpgo_kernels.so *.o
 
 The library lands in `build/dpgo_tpu_torch/` at the repository root (listed
 in .gitignore) and is rebuilt when the hash of the sources changes. Nothing
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -34,8 +37,8 @@ _SIGNATURES = {
     # (A, R, n, stream)
     "dpgo_polar_so3": [_P, _P, ctypes.c_longlong, _P],
     # (H, P, g, v0, Q, S, Delta, active, target, h, Hh, norm, k, scratch,
-    #  N, nd, max_iters, stream)
-    "dpgo_stpcg": [_P] * 14 + [_I, _I, _I, _P],
+    #  N, nd, d, max_iters, stream)
+    "dpgo_stpcg": [_P] * 14 + [_I, _I, _I, _I, _P],
 }
 
 
@@ -73,6 +76,19 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; returns their joined output, or raises
+    with the output of one that failed once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + log)
+    return "".join(logs)
+
+
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the library is missing or stale; returns its
     path."""
@@ -83,19 +99,19 @@ def build(verbose: bool = False) -> str:
             if fh.read().strip() == digest:
                 return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-lineinfo", "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
+    ptxas = ["--ptxas-options=-v"] if verbose else []
+    srcs = [s for s in sources() if s.endswith(".cu")]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        log = _run_all([[nvcc, *ARCH_FLAGS, *ptxas, "-std=c++17", "-O3", "-c",
+                         "-Xcompiler", "-fPIC", "-lineinfo", "-o", o, s]
+                        for s, o in zip(srcs, objs)])
+        lib = os.path.join(tmp, os.path.basename(LIB_PATH))
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, LIB_PATH)
     if verbose:
-        cmd.insert(1, "--ptxas-options=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + proc.stdout + proc.stderr)
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, LIB_PATH)
+        print(log)
     with open(stamp, "w") as fh:
         fh.write(digest)
     return LIB_PATH

@@ -17,10 +17,11 @@ r_e = A_self x_self + A_other x_other. The per-node surrogate around anchor Z:
 Rotations are stored as true rotation matrices [N, n, d, d]; the dense
 operators act on tall Q-storage (Q = R^T blocks stacked, [N, n d, d]).
 
-Ported here: the dense path with static rescale and the trivial loss. The
-segment path (blocks above `segment_limit` poses), the edge-wise operator
-path (n d above `dense_limit`), robust losses and dynamic rescale raise
-NotImplementedError.
+Ported here: the dense path at d = 2 and 3, with every loss kernel and
+both rescale modes. Under dynamic rescale `with_weights` rebuilds the
+reweighted problem, including the operator Hred that kernel K1 streams. The
+segment path (blocks above `segment_limit` poses) and the edge-wise operator
+path (n d above `dense_limit`) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from dpgo_tpu_torch.graph import MultiGraph
-from dpgo_tpu_torch.losses import Loss
+from dpgo_tpu_torch.losses import Loss, loss_value, loss_weight
 from dpgo_tpu_torch.manifold import project_sod
 from dpgo_tpu_torch.ops import stpcg_cuda
 
@@ -44,6 +45,11 @@ def _nsum(x: torch.Tensor) -> torch.Tensor:
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Batched [..., a, b] @ [..., b] -> [..., a]."""
     return (M @ v[..., None])[..., 0]
+
+
+def _edge_sq(u: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
+    """Per-edge |u|^2 + |E|_F^2: [N, m, d], [N, m, d, d] -> [N, m]."""
+    return torch.sum(u * u, -1) + torch.sum(E * E, (-1, -2))
 
 
 @dataclasses.dataclass
@@ -64,10 +70,11 @@ class NodeState:
 ARRAY_FIELDS = (
     "pose_mask", "diagT_inv", "nvec", "W", "Minv_red", "null_V", "mG00_d",
     "mG01_d", "mG11_d", "Hred_d", "precon_dense",
+    "scale_w", "ipose", "imask", "SU", "wood_C",
     "a_i", "a_j", "a_R", "a_t", "a_kap", "a_tau",
     "e_self", "e_slot", "e_self_is_i", "e_R", "e_t", "e_kap", "e_tau")
-INDEX_FIELDS = ("a_i", "a_j", "e_self", "e_slot")
-BOOL_FIELDS = ("pose_mask", "e_self_is_i")
+INDEX_FIELDS = ("a_i", "a_j", "e_self", "e_slot", "ipose")
+BOOL_FIELDS = ("pose_mask", "e_self_is_i", "imask")
 
 
 @dataclasses.dataclass
@@ -79,6 +86,9 @@ class NodeProblem:
     loss: Loss
     loss_reg: float
     dense: bool
+    # Dynamic rescale: the problem carries persisted surrogate weights
+    # scale_w != 1 (set by with_weights). False: scale_w is all ones.
+    dynamic: bool
 
     pose_mask: torch.Tensor   # [N, n0] bool
     diagT_inv: torch.Tensor   # [N, n0] T = 1/DiagT
@@ -97,6 +107,16 @@ class NodeProblem:
     # kernel K1 streams.
     Hred_d: torch.Tensor        # [N, n0 d, n0 d]
     precon_dense: torch.Tensor  # [N, n0 d, n0 d]
+
+    # Dynamic rescale: per-inter-edge surrogate weights w_bar (the
+    # quadratic surrogate's inter terms scale by w_bar, residuals keep unit
+    # measurement weights), and the Woodbury correction of the translation
+    # solve for the diagonal weight delta at the poses with inter edges.
+    scale_w: torch.Tensor     # [N, m1] in [min_rescale, 1]
+    ipose: torch.Tensor       # [N, kmax] poses with inter edges (pad 0)
+    imask: torch.Tensor       # [N, kmax] bool
+    SU: torch.Tensor          # [N, n0, kmax] base-inverse columns at ipose
+    wood_C: torch.Tensor      # [N, kmax, kmax] Woodbury core (with_weights)
 
     # Intra edges.
     a_i: torch.Tensor
@@ -143,7 +163,7 @@ class NodeProblem:
 
     def fused_stpcg_supported(self) -> bool:
         """The Hopper gate of kernel K1 (replacing the TPU's fits_vmem):
-        dense path, d = 3, float32, on a CUDA device."""
+        dense path, d = 2 or 3, float32, on a CUDA device."""
         return self.dense and stpcg_cuda.supported(
             self.d, self.Hred_d.dtype, self.Hred_d.device)
 
@@ -206,7 +226,28 @@ class NodeProblem:
         E_s = torch.where(self._selm, sk * (Rs @ self.e_R), -sk * Rs)
         return u_s, E_s
 
+    def _sw(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-inter-edge x [N, m1] scaled by the dynamic-rescale weights
+        (all ones unless `dynamic`)."""
+        return x * self.scale_w if self.dynamic else x
+
+    def inter_weights(self, state: NodeState):
+        """Per inter-edge robust IRLS weights and squared residuals at the
+        state: (w, s) [N, m1]."""
+        (u_s, E_s), (u_o, E_o) = self.inter_halves(state)
+        s = _edge_sq(u_s + u_o, E_s + E_o)
+        return loss_weight(self.loss, s, self.loss_reg), s
+
     # ------------------------------------------------------------ evaluations
+
+    def local_fobj(self, state: NodeState) -> torch.Tensor:
+        """Node objective F^a(Z) = 1/2 sum_intra |r|^2 + 1/4 sum_inter
+        rho(|r|^2) (inter edges shared half-half between endpoints): [N]."""
+        rt, rR = self.intra_residuals(state.t, state.R)
+        (u_s, E_s), (u_o, E_o) = self.inter_halves(state)
+        s = _edge_sq(u_s + u_o, E_s + E_o)
+        return 0.5 * (_nsum(rt * rt) + _nsum(rR * rR)) \
+            + 0.25 * _nsum(loss_value(self.loss, s, self.loss_reg))
 
     def surrogate_g_f_fobj_res(self, state: NodeState):
         """(g, f, fobj, zres) with the residual halves computed once; zres =
@@ -214,18 +255,56 @@ class NodeProblem:
         evaluate_G_rel calls reuse."""
         halves = self.inter_halves(state)
         (u_s, E_s), (u_o, E_o) = halves
-        u = u_s + u_o
-        E = E_s + E_o
         rt, rR = self.intra_residuals(state.t, state.R)
-        s = torch.sum(u * u, -1) + torch.sum(E * E, (-1, -2))
-        fobj = 0.5 * (_nsum(rt * rt) + _nsum(rR * rR)) + 0.25 * _nsum(s)
-        g, f = self._g_f(state, halves)
-        return g, f, fobj, ((rt, rR), (u_s, E_s))
+        s = _edge_sq(u_s + u_o, E_s + E_o)
+        f_intra = 0.5 * (_nsum(rt * rt) + _nsum(rR * rR))
+        zres = ((rt, rR), (u_s, E_s))
+        if self.loss is Loss.TRIVIAL:
+            g, f = self._g_f(state, halves)
+            return g, f, f_intra + 0.25 * _nsum(s), zres
+        g = self._robust_g(state, halves, s)
+        fobj = f_intra + 0.25 * _nsum(loss_value(self.loss, s, self.loss_reg))
+        # f makes the surrogate touch the node objective at the anchor:
+        # F^a - 1/2 <G z, z> - <g, z>.
+        f = fobj - 0.5 * self.G_quad(state.t, state.R) \
+            - _nsum(g[0] * state.t) - _nsum(g[1] * state.R)
+        return g, f, fobj, zres
 
     def surrogate_g_f(self, state: NodeState):
-        """Linear term g = (g_t, g_R) and constant f of G^a(.|Z) (trivial
-        loss: g = A_self^T (A_o z_o - A_s z_s) - xi z_a)."""
-        return self._g_f(state, self.inter_halves(state))
+        """Linear term g = (g_t, g_R) and constant f of G^a(.|Z).
+
+        g = A_self^T (w r - 2 w_bar A_self z_self) - xi z_a with w the IRLS
+        weight at the anchor and w_bar the rescale weight; for the trivial
+        loss (w = w_bar = 1) that is A_self^T (A_o z_o - A_s z_s) - xi z_a."""
+        if self.loss is Loss.TRIVIAL:
+            return self._g_f(state, self.inter_halves(state))
+        g, f, _, _ = self.surrogate_g_f_fobj_res(state)
+        return g, f
+
+    def surrogate_g(self, state: NodeState):
+        """The linear term g of G^a(.|Z) alone."""
+        halves = self.inter_halves(state)
+        if self.loss is Loss.TRIVIAL:
+            return self._g_f(state, halves)[0]
+        (u_s, E_s), (u_o, E_o) = halves
+        return self._robust_g(state, halves, _edge_sq(u_s + u_o, E_s + E_o))
+
+    def _robust_g(self, state: NodeState, halves, s):
+        (u_s, E_s), (u_o, E_o) = halves
+        w = loss_weight(self.loss, s, self.loss_reg)
+        sw2 = 2.0 * self.scale_w
+        g_t, g_R = self.apply_A_self_T(
+            w[..., None] * (u_s + u_o) - sw2[..., None] * u_s,
+            w[..., None, None] * (E_s + E_o) - sw2[..., None, None] * E_s)
+        return g_t - self.xi * state.t, g_R - self.xi * state.R
+
+    def G_quad(self, t, R):
+        """<G X, X> for X = (t, R), the SPD surrogate quadratic form: [N]."""
+        rt, rR = self.intra_residuals(t, R)
+        u_s, E_s = self._self_half(t, R)
+        return (_nsum(rt * rt) + _nsum(rR * rR)
+                + 2.0 * _nsum(self.scale_w * _edge_sq(u_s, E_s))
+                + self.xi * (_nsum(t * t) + _nsum(R * R)))
 
     def _g_f(self, state: NodeState, halves):
         (u_s, E_s), (u_o, E_o) = halves
@@ -258,9 +337,9 @@ class NodeProblem:
         rtX, rRX = self.intra_residuals(xt, xR)
         dq = sq_diff(rtX, rtZ) + sq_diff(rRX, rRZ)
         usX, EsX = self._self_half(xt, xR)
-        dq = dq + 2.0 * torch.sum(
+        dq = dq + 2.0 * torch.sum(self._sw(
             torch.sum((usX - usZ) * (usX + usZ), -1)
-            + torch.sum((EsX - EsZ) * (EsX + EsZ), (-1, -2)), -1)
+            + torch.sum((EsX - EsZ) * (EsX + EsZ), (-1, -2))), -1)
         dq = dq + self.xi * (sq_diff(xt, zt) + sq_diff(xR, zR))
         g_t, g_R = g
         lin = _nsum(g_t * (xt - zt)) + _nsum(g_R * (xR - zR))
@@ -283,7 +362,7 @@ class NodeProblem:
         EsX = torch.where(self._selm, sk * (Rs @ self.e_R), -sk * Rs)
         Rs_et = _mv(Rs, self.e_t)
         dqR = sq_diff(rRX, rRZ) + self.xi * sq_diff(xR, zR) + 2.0 * torch.sum(
-            torch.sum((EsX - EsZ) * (EsX + EsZ), (-1, -2)), -1)
+            self._sw(torch.sum((EsX - EsZ) * (EsX + EsZ), (-1, -2))), -1)
         g_t, g_R = g
         linR = _nsum(g_R * (xR - zR))
         sqrt_tau_a = torch.sqrt(self.a_tau)[..., None]
@@ -294,8 +373,8 @@ class NodeProblem:
             ts = self._g(xt, self.e_self)
             usX = torch.where(self._sel, st * (ts + Rs_et), -st * ts)
             dq = sq_diff(rtX, rtZ) + self.xi * sq_diff(xt, zt) \
-                + 2.0 * torch.sum(torch.sum((usX - usZ) * (usX + usZ), -1),
-                                  -1)
+                + 2.0 * torch.sum(
+                    self._sw(torch.sum((usX - usZ) * (usX + usZ), -1)), -1)
             return dq + 2.0 * _nsum(g_t * (xt - zt))
 
         base = fobj + 0.5 * dqR + linR
@@ -358,9 +437,14 @@ class NodeProblem:
         through the split inverse. The null response (near-singular on
         components without inter edges, where dividing by xi would amplify
         rounding by 1/xi) equals the gauge of the anchor state whose
-        surrogate produced rhs: -null_V null_V^T t_anchor."""
+        surrogate produced rhs: -null_V null_V^T t_anchor. Under dynamic
+        rescale the Woodbury core corrects the base inverse for the
+        diagonal weight delta at the poses with inter edges."""
         c = -(self.null_V.transpose(-1, -2) @ t_anchor)
-        return self.Minv_red @ rhs + self.null_V @ c
+        out = self.Minv_red @ rhs + self.null_V @ c
+        if self.dynamic:
+            out = out - self.SU @ (self.wood_C @ self._g(out, self.ipose))
+        return out
 
     def recover_translations(self, R, g_t, t_anchor):
         """t = -mG00^{-1} (g_t + mG01 R) (edge-wise coupling block)."""
@@ -375,7 +459,7 @@ class NodeProblem:
         v = self.a_tau[..., None] * _mv(self._g(M, self.a_i), self.a_t)
         out = self._scatter(self._fi, v) + self._scatter(self._fj, -v)
         w = torch.where(self._sel,
-                        (2.0 * self.e_tau)[..., None]
+                        (2.0 * self._sw(self.e_tau))[..., None]
                         * _mv(self._g(M, self.e_self), self.e_t),
                         0.0)
         return out + self._scatter(self._fs, w)
@@ -429,8 +513,98 @@ class NodeProblem:
         return -self.solve_mG00(g_t + self.mG01_d @ Q, t_anchor)
 
 
+def with_weights(base: NodeProblem, w_bar: torch.Tensor) -> NodeProblem:
+    """The problem reweighted for dynamic rescale, batched over the node
+    axis (dpgo_tpu/problem.py::with_weights).
+
+    `base` must be the problem as built (scale_w = 1); w_bar [N, m1] are the
+    new persisted surrogate weights. Recomputes the proximal constants
+    (diagT, nvec, W), the Woodbury core of the translation solve, and the
+    dense operator images mG00, mG01, mG11 and Hred; kernel K1 reads the new
+    Hred directly. precon_dense stays the base one: w <= 1 only shrinks the
+    operator, so the base inverse remains an SPD preconditioner.
+    """
+    N, n0, d = base.num_nodes, base._n0(), base.d
+    nd = n0 * d
+    dt, dev = base.diagT_inv.dtype, base.diagT_inv.device
+    eye = torch.eye(d, dtype=dt, device=dev)
+    b = base._b
+
+    def acc(out, *terms):
+        """out [N, n0, ...] += each (flat pose index, values) in turn."""
+        flat = out.reshape((N * n0,) + out.shape[2:])
+        for idx, vals in terms:
+            flat.index_add_(0, idx, vals.reshape((-1,) + vals.shape[2:]))
+        return out
+
+    # Pose-level auxiliary quantities, rebuilt from the edge arrays.
+    a_t2 = 2.0 * base.a_tau
+    e_t2 = 2.0 * w_bar * base.e_tau
+    diagT = acc(torch.full((N, n0), 1.5 * base.xi, dtype=dt, device=dev),
+                (base._fi, a_t2), (base._fj, a_t2), (base._fs, e_t2))
+    nvec = acc(torch.zeros((N, n0, d), dtype=dt, device=dev),
+               (base._fi, a_t2[..., None] * base.a_t),
+               (base._fs, torch.where(base._sel, e_t2[..., None] * base.e_t,
+                                      0.0)))
+    a_k2 = 2.0 * base.a_kap
+    e_k2 = 2.0 * w_bar * base.e_kap
+    outer_a = base.a_t[..., :, None] * base.a_t[..., None, :]
+    outer_e = base.e_t[..., :, None] * base.e_t[..., None, :]
+    S = acc((1.5 * base.xi) * eye.expand(N, n0, d, d).clone(),
+            (base._fi, a_k2[..., None, None] * eye
+             + a_t2[..., None, None] * outer_a),
+            (base._fj, a_k2[..., None, None] * eye),
+            (base._fs, e_k2[..., None, None] * eye
+             + torch.where(base._selm, e_t2[..., None, None] * outer_e,
+                           0.0)))
+    Tinv = 1.0 / diagT
+    W = S - Tinv[..., None, None] * nvec[..., :, None] * nvec[..., None, :]
+
+    # Woodbury core for the translation solve: the weight delta is diagonal
+    # and lives at the inter poses only.
+    delta = acc(torch.zeros((N, n0), dtype=dt, device=dev),
+                (base._fs, 2.0 * base.e_tau * (w_bar - 1.0)))
+    D = base._g(delta, base.ipose) * base.imask
+    UtSU = base.SU[b, base.ipose]  # [N, k, k]
+    k = D.shape[1]
+    A = torch.eye(k, dtype=dt, device=dev) + UtSU * D[:, None, :]
+    wood_C = D[..., None] * torch.linalg.inv(A)
+
+    # Dense operator deltas relative to the base's unit weights.
+    dw = w_bar - base.scale_w
+    es = base.e_self
+    ar = torch.arange(d, device=dev)
+    v11 = (2.0 * dw * base.e_kap)[..., None, None] * eye + torch.where(
+        base._selm, (2.0 * dw * base.e_tau)[..., None, None] * outer_e, 0.0)
+    rc = (es * d)[..., None] + ar  # [N, m1, d] rows/cols of the self block
+    idx11 = ((b[..., None, None] * nd + rc[..., :, None]) * nd
+             + rc[..., None, :])
+    mG11_d = base.mG11_d.clone()
+    mG11_d.view(-1).index_add_(0, idx11.reshape(-1), v11.reshape(-1))
+    v01 = torch.where(base._sel, (2.0 * dw * base.e_tau)[..., None]
+                      * base.e_t, 0.0)
+    idx01 = (b[..., None] * n0 + es[..., None]) * nd + rc
+    mG01_d = base.mG01_d.clone()
+    mG01_d.view(-1).index_add_(0, idx01.reshape(-1), v01.reshape(-1))
+    idx00 = (b * n0 + es) * n0 + es
+    mG00_d = base.mG00_d.clone()
+    mG00_d.view(-1).index_add_(0, idx00.reshape(-1),
+                               (2.0 * dw * base.e_tau).reshape(-1))
+    # Hred = mG11 - mG10 X with X = mG00^{-1} mG01 through the base split
+    # inverse and the new Woodbury core (the null response is dropped, as
+    # at build time).
+    X = base.Minv_red @ mG01_d
+    X = X - base.SU @ (wood_C @ base._g(X, base.ipose))
+    Hred_d = mG11_d - mG01_d.transpose(-1, -2) @ X
+    return dataclasses.replace(
+        base, dynamic=True, scale_w=w_bar, diagT_inv=Tinv, nvec=nvec, W=W,
+        wood_C=wood_C, mG11_d=mG11_d, mG01_d=mG01_d, mG00_d=mG00_d,
+        Hred_d=Hred_d)
+
+
 def make_problem(arrays: dict, *, d: int, xi: float, loss: Loss,
-                 loss_reg: float, dense: bool, device, dtype) -> NodeProblem:
+                 loss_reg: float, dense: bool, device, dtype,
+                 dynamic: bool = False) -> NodeProblem:
     """NodeProblem from numpy arrays keyed by field name (host -> device)."""
     def conv(name):
         x = np.asarray(arrays[name])
@@ -443,6 +617,7 @@ def make_problem(arrays: dict, *, d: int, xi: float, loss: Loss,
         return torch.as_tensor(x, dtype=dtype, device=device)
 
     return NodeProblem(d=d, xi=xi, loss=loss, loss_reg=loss_reg, dense=dense,
+                       dynamic=dynamic,
                        **{name: conv(name) for name in ARRAY_FIELDS})
 
 
@@ -459,8 +634,6 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
     the dense branch of dpgo_tpu/problem.py::build_node_problems, as the
     same host numpy in float64, then moved to `device` in `dtype`."""
     N, n0m, d = mg.num_nodes, mg.n0_max, mg.d
-    if loss is not Loss.TRIVIAL:
-        raise NotImplementedError("robust losses are not ported yet")
     if n0m > segment_limit:
         raise NotImplementedError("the segment path (blocks above "
                                   f"{segment_limit} poses) is not ported yet")
@@ -598,11 +771,29 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
         precon_dense[a] = np.linalg.inv(
             Hred_d[a] + (lam_h / precon_cond) * np.eye(nd))
 
+    # Inter-pose selector + base-inverse columns for the dynamic-rescale
+    # Woodbury translation solve.
+    ipose_list = [np.unique(mg.e_self[a][mg.e_mask[a]]) for a in range(N)]
+    kmax = max([len(v) for v in ipose_list] + [1])
+    ipose = np.zeros((N, kmax), np.int64)
+    imask = np.zeros((N, kmax), bool)
+    SU = np.zeros((N, n0m, kmax))
+    for a in range(N):
+        cols = ipose_list[a]
+        k = len(cols)
+        ipose[a, :k] = cols
+        imask[a, :k] = True
+        if k:
+            SU[a][:, :k] = Minv_red[a][:, cols] \
+                + null_V[a] @ null_V[a][cols, :].T / xi
+
     arrays = dict(
         pose_mask=mg.pose_mask, diagT_inv=Tinv, nvec=nvec, W=W,
         Minv_red=Minv_red, null_V=null_V,
         mG00_d=mG00_full, mG01_d=mG01_d, mG11_d=mG11_d, Hred_d=Hred_d,
         precon_dense=precon_dense,
+        scale_w=np.ones((N, mg.m1_max)), ipose=ipose, imask=imask, SU=SU,
+        wood_C=np.zeros((N, kmax, kmax)),
         a_i=mg.a_i, a_j=mg.a_j, a_R=mg.a_R, a_t=mg.a_t, a_kap=mg.a_kap,
         a_tau=mg.a_tau, e_self=mg.e_self, e_slot=mg.e_slot,
         e_self_is_i=mg.e_self_is_i, e_R=mg.e_R, e_t=mg.e_t, e_kap=mg.e_kap,

@@ -6,6 +6,9 @@ axis (torch port of the AMM path of dpgo_tpu/solvers/mm.py).
   Fk0/Fk1, restart hit counters, oscillation window.
 - `iterate_amm`  = DPGOHash::amm_pgo: extrapolation, closed-form proximal
   step, TNT refinement, the adaptive retry / restart / phi-test cascade.
+- `rescale` / `reweighted_problems`: robust losses under dynamic rescale
+  update and iterate on the problems reweighted by the state's persisted
+  weights (`with_weights`).
 
 Control flow: where the JAX package branches on the device (`lax.cond` on
 `jnp.any(mask)`), this port reads the flag on the host through a
@@ -19,10 +22,11 @@ import dataclasses
 
 import torch
 
+from dpgo_tpu_torch.losses import Loss
 from dpgo_tpu_torch.manifold import proj_tangent, project_sod
 from dpgo_tpu_torch.ops.stpcg import sel, stpcg_fused_reference
 from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
-from dpgo_tpu_torch.problem import NodeProblem, NodeState, _nsum
+from dpgo_tpu_torch.problem import NodeProblem, NodeState, _nsum, with_weights
 from dpgo_tpu_torch.solvers.tnt import TNTModel, TNTParams, tnt_generic
 from dpgo_tpu_torch.utils import HostSyncs
 
@@ -38,7 +42,10 @@ class MMOptions:
     # Max condition number of the regularized STPCG preconditioner. None =
     # by dtype: 1e6 in f64, 1e5 in f32.
     precon_cond: float | None = None
-    rescale: str = "static"
+    rescale: str = "static"          # "static" | "dynamic" (robust losses)
+    max_rescale_count: int = 5
+    min_rescale: float = 0.01
+    max_rescale: float = 1.0
     # Per-node objective sequence: True = the exact Q-telescoping, False =
     # direct edge-wise evaluation each update. None = telescoped in f64,
     # direct in f32.
@@ -103,6 +110,10 @@ class MMState:
     z_rR: torch.Tensor       # [N, m0, d, d]
     z_us: torch.Tensor       # [N, m1, d]
     z_Es: torch.Tensor       # [N, m1, d, d]
+    # Dynamic rescale (robust losses): persisted surrogate weights and the
+    # updates since each node's last rescale.
+    scale_w: torch.Tensor    # [N, m1]
+    rescale_count: torch.Tensor  # [N] int32
 
     def replace(self, **kw) -> "MMState":
         return dataclasses.replace(self, **kw)
@@ -134,17 +145,53 @@ def init_state(probs: NodeProblem, Z: NodeState, opts: MMOptions) -> MMState:
         z_rR=torch.zeros((N, m0, d, d), dtype=dt, device=dev),
         z_us=torch.zeros((N, m1, d), dtype=dt, device=dev),
         z_Es=torch.zeros((N, m1, d, d), dtype=dt, device=dev),
+        scale_w=torch.ones_like(probs.scale_w),
+        rescale_count=izeros,
     )
 
 
 def _check_supported(probs: NodeProblem, opts: MMOptions):
-    if opts.rescale != "static":
-        raise NotImplementedError("dynamic rescale is not ported yet")
+    if opts.rescale not in ("static", "dynamic"):
+        raise ValueError(f"unknown rescale {opts.rescale!r}")
     if resolve_scheme(opts) != "amm":
         raise NotImplementedError(
             f"scheme {resolve_scheme(opts)!r} is not ported yet (AMM only)")
     if not probs.dense:
         raise NotImplementedError("only the dense operator path is ported")
+
+
+def _dynamic(probs: NodeProblem, opts: MMOptions) -> bool:
+    return opts.rescale == "dynamic" and probs.loss is not Loss.TRIVIAL
+
+
+def rescale(probs: NodeProblem, st: MMState, opts: MMOptions) -> MMState:
+    """The dynamic-rescale trigger (the reference's
+    evaluate_g_and_f0_rescale): a node whose current weight exceeds its
+    persisted one on some inter-node edge, or that has gone
+    `max_rescale_count` updates without a rescale, takes 1.25 x its current
+    weights, clamped to [min_rescale, max_rescale]. Selected per node on the
+    device; no host read. The state unchanged when static or for the
+    trivial loss. `probs` are the base problems."""
+    if not _dynamic(probs, opts):
+        return st
+    w_cur, _ = probs.inter_weights(st.Z)
+    exceeded = (w_cur > st.scale_w).any(1)
+    rescaled = (st.rescale_count >= opts.max_rescale_count) | exceeded
+    w_new = torch.clamp(1.25 * w_cur, opts.min_rescale, opts.max_rescale)
+    return st.replace(
+        scale_w=torch.where(rescaled[:, None], w_new, st.scale_w),
+        rescale_count=torch.where(rescaled, 0, st.rescale_count + 1).to(
+            torch.int32))
+
+
+def reweighted_problems(probs: NodeProblem, st: MMState,
+                        opts: MMOptions) -> NodeProblem:
+    """The base problems with the state's persisted dynamic-rescale weights
+    applied (the base problems themselves when static or for the trivial
+    loss)."""
+    if not _dynamic(probs, opts):
+        return probs
+    return with_weights(probs, st.scale_w)
 
 
 # --------------------------------------------------------------------- update
@@ -154,7 +201,11 @@ def update_state(probs: NodeProblem, st: MMState, opts: MMOptions,
                  k: int, first: bool) -> MMState:
     """DPGOHash::update: recompute surrogate anchors at the new Z and run
     the Nesterov/restart bookkeeping. `k` is the iteration index (0 at
-    `first`)."""
+    `first`).
+
+    Under dynamic rescale `st` has been through `rescale` and `probs` are
+    the problems reweighted by its weights (`reweighted_problems`), the
+    same problems the next iterate runs on."""
     _check_supported(probs, opts)
     if opts.oscillation_cnt_period + 2 != st.osc_buf.shape[-1]:
         raise ValueError("state was initialized with a different "
@@ -165,9 +216,9 @@ def update_state(probs: NodeProblem, st: MMState, opts: MMOptions,
         telescoped = st.Z.t.dtype == torch.float64
 
     Z = st.Z
-    if first or not telescoped:
-        # f32: evaluate the node objective directly, fused with the
-        # surrogate anchors so the edge arrays are gathered once.
+    if first or probs.loss is not Loss.TRIVIAL or not telescoped:
+        # Robust kernels / f32: evaluate the node objective directly, fused
+        # with the surrogate anchors so the edge arrays are gathered once.
         g, f, fobj, zres = probs.surrogate_g_f_fobj_res(Z)
     else:
         g, _ = probs.surrogate_g_f(Z)
@@ -265,13 +316,9 @@ def _make_tnt_model_dense(p: NodeProblem, g_t, g_Q, t_anchor, anchor,
 
         def fused(x, nabla, grad, pgrad, Delta, active):
             Q = x[1]
-            N, nd, d = Q.shape
-            Qb = Q.reshape(N, -1, d, d)
-            Sb = Qb @ nabla.reshape(N, -1, d, d).transpose(-1, -2)
-            Sb = 0.5 * (Sb + Sb.transpose(-1, -2))
             return fkern(p.Hred_d, p.precon_dense, grad.contiguous(),
                          pgrad.contiguous(), Q.contiguous(),
-                         Sb.reshape(N, nd, d), Delta.contiguous(),
+                         _curvature_blocks(Q, nabla), Delta.contiguous(),
                          active.contiguous(),
                          max_iters=tnt_params.max_tCG_iterations,
                          kappa_fgr=tnt_params.kappa_fgr,
@@ -280,6 +327,26 @@ def _make_tnt_model_dense(p: NodeProblem, g_t, g_Q, t_anchor, anchor,
     return TNTModel(objective=objective, grad_and_nabla=grad_and_nabla,
                     hess_vp=hess_vp, precondition=precondition,
                     retract=retract, fused_stpcg=fused)
+
+
+def _curvature_blocks(Q, nabla):
+    """K1's curvature blocks sym(Q_p nabla_p^T) in tall storage [N, nd, d]."""
+    N, nd, d = Q.shape
+    Sb = Q.reshape(N, -1, d, d) @ nabla.reshape(N, -1, d, d).transpose(-1, -2)
+    return (0.5 * (Sb + Sb.transpose(-1, -2))).reshape(N, nd, d)
+
+
+def stpcg_inputs(p: NodeProblem, st: MMState):
+    """K1's operator and vector arguments (Hred, precon, grad, preconditioned
+    grad, Q, S) for every node of problems `p` at the anchor of state `st`,
+    built as the dense TNT model builds them; for holding the kernel against
+    its plain version at a solver's shapes."""
+    Q = p.to_tall(st.Z.R).contiguous()
+    nabla = p.reduced_grad_tall(st.Z.t, Q, p.to_tall(st.g_R))
+    grad = p.proj_tall(Q, nabla).contiguous()
+    pgrad = p.precondition_tall(Q, grad).contiguous()
+    return (p.Hred_d, p.precon_dense, grad, pgrad, Q,
+            _curvature_blocks(Q, nabla))
 
 
 def resolve_preconditioner(probs: NodeProblem, opts: MMOptions) -> str:
@@ -340,7 +407,9 @@ def _eval_G_pair_batch(probs: NodeProblem, st: MMState, t1, t2, R, zres):
 
 def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
                 syncs: HostSyncs | None = None) -> MMState:
-    """One AMM-PGO# iteration for all nodes (DPGOHash::amm_pgo)."""
+    """One AMM-PGO# iteration for all nodes (DPGOHash::amm_pgo). Under
+    dynamic rescale `probs` are the reweighted problems
+    (`reweighted_problems`)."""
     _check_supported(probs, opts)
     syncs = syncs or HostSyncs()
     gamma = st.gamma
@@ -350,14 +419,19 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
         return cur + g * (cur - prev)
 
     # Nesterov extrapolation of the full Z; (g, Df) extrapolate linearly for
-    # the trivial loss.
+    # the trivial loss and are re-evaluated at Y for robust kernels
+    # (DPGOHash.cpp:250-266).
     Y = NodeState(t=extrap(st.Z.t, st.Z_prev.t), R=extrap(st.Z.R, st.Z_prev.R),
                   th=extrap(st.Z.th, st.Z_prev.th),
                   Rh=extrap(st.Z.Rh, st.Z_prev.Rh))
-    g_t_ex = extrap(st.g_t, st.g_t_prev)
-    g_R_ex = extrap(st.g_R, st.g_R_prev)
-    Df_t_ex = extrap(st.Df_t, st.Df_t_prev)
-    Df_R_ex = extrap(st.Df_R, st.Df_R_prev)
+    if probs.loss is Loss.TRIVIAL:
+        g_t_ex = extrap(st.g_t, st.g_t_prev)
+        g_R_ex = extrap(st.g_R, st.g_R_prev)
+        Df_t_ex = extrap(st.Df_t, st.Df_t_prev)
+        Df_R_ex = extrap(st.Df_R, st.Df_R_prev)
+    else:
+        g_t_ex, g_R_ex = probs.surrogate_g(Y)
+        Df_t_ex, Df_R_ex = probs.euclidean_Df(Y, (g_t_ex, g_R_ex))
 
     tnt_off = (opts.tnt.max_iterations <= 0
                or opts.tnt.max_iterations_accepted <= 0)

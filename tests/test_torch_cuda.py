@@ -50,37 +50,40 @@ def test_polar_so3_kernel_matches_plain(dev, rng):
     np.testing.assert_allclose(R[7].cpu().numpy(), np.eye(3), atol=0)
 
 
-@pytest.mark.cuda
-def test_stpcg_kernel_matches_plain(dev, rng):
-    """K1 with the same k and h within rtol 2e-4 / atol 2e-5 of its plain
-    version (f32) on a random SPD problem; an inactive lane gives a zero
-    step with k = 0."""
-    from dpgo_tpu_torch.ops.so3 import polar_so3
+def _random_stpcg_case(dev, rng, d, n):
+    """K1 against its plain version on a random SPD problem of N = 3 nodes
+    with n poses of size d: the same k, h within rtol 2e-4 / atol 2e-5,
+    Hh within rtol 2e-3 / atol 2e-4, |h|_M within rtol 1e-4; the inactive
+    lane gives a zero step with k = 0."""
+    from dpgo_tpu_torch.manifold import project_sod
+    from dpgo_tpu_torch.ops import stpcg_cuda
     from dpgo_tpu_torch.ops.stpcg import _proj_tall, stpcg_fused_reference
     from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
 
-    N, n = 3, 50
-    nd = 3 * n
+    N = 3
+    nd = d * n
     M = rng.normal(size=(N, nd, nd)) / np.sqrt(nd)
     H = M @ M.transpose(0, 2, 1) + 0.1 * np.eye(nd)
     P = np.linalg.inv(H + 0.5 * np.eye(nd))
-    Q = polar_so3(torch.tensor(rng.normal(size=(N * n, 3, 3))))
-    Q = Q.reshape(N, nd, 3)
-    S = rng.normal(size=(N, n, 3, 3)) * 0.01
-    S = (S + S.transpose(0, 1, 3, 2)).reshape(N, nd, 3)
+    Q = project_sod(torch.tensor(rng.normal(size=(N * n, d, d))))
+    Q = Q.reshape(N, nd, d)
+    S = rng.normal(size=(N, n, d, d)) * 0.01
+    S = (S + S.transpose(0, 1, 3, 2)).reshape(N, nd, d)
 
     def f(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev) \
             .contiguous()
 
     Ht, Pt, Qt, St = f(H), f(P), f(Q), f(S)
-    g = _proj_tall(Qt, f(rng.normal(size=(N, nd, 3)))).contiguous()
+    g = _proj_tall(Qt, f(rng.normal(size=(N, nd, d)))).contiguous()
     v0 = _proj_tall(Qt, Pt @ g).contiguous()
     kw = dict(max_iters=250, kappa_fgr=0.05, theta=0.9)
     act = torch.tensor([True, False, True], device=dev)
     for Delta in (100.0, 0.02):
         Dl = torch.full((N,), Delta, device=dev)
+        before = stpcg_cuda.Launches.by_d[d]
         h, Hh, nrm, k = stpcg_fused(Ht, Pt, g, v0, Qt, St, Dl, act, **kw)
+        assert stpcg_cuda.Launches.by_d[d] == before + 1
         hr, Hhr, nrmr, kr = stpcg_fused_reference(Ht, Pt, g, v0, Qt, St, Dl,
                                                   act, **kw)
         assert torch.equal(k.cpu(), kr.cpu())
@@ -91,6 +94,78 @@ def test_stpcg_kernel_matches_plain(dev, rng):
                                    rtol=2e-3, atol=2e-4)
         np.testing.assert_allclose(nrm.cpu().numpy(), nrmr.cpu().numpy(),
                                    rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_stpcg_kernel_matches_plain(dev, rng):
+    """K1 at D = 3 against its plain version (f32) on a random SPD
+    problem (see _random_stpcg_case)."""
+    _random_stpcg_case(dev, rng, 3, 50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [625, 100])
+def test_stpcg_kernel_d2_matches_plain(dev, rng, n):
+    """K1 at D = 2 against its plain version (f32): nd = 1250, the
+    Manhattan-world node block, whose rows are only 8-byte aligned, and
+    nd = 200, a multiple of 4 (16-byte loads)."""
+    _random_stpcg_case(dev, rng, 2, n)
+
+
+@pytest.mark.cuda
+def test_stpcg_kernel_on_reweighted_problem(dev):
+    """K1 on the Hred that with_weights rebuilt under dynamic rescale
+    (Huber, artifacts/grid3D_synth.g2o with every tenth inter-node edge an
+    outlier, after the first rescale) against its plain version: the same
+    k per node and h within rtol 2e-4 / atol 2e-5."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+    from dpgo_tpu_torch.losses import Loss
+    from dpgo_tpu_torch.ops.stpcg import stpcg_fused_reference
+    from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
+    from dpgo_tpu_torch.solvers.mm import MMOptions, stpcg_inputs
+    from dpgo_tpu_torch.synthetic import with_outliers
+
+    meas = read_g2o_file(os.path.join(REPO, "artifacts",
+                                      "grid3D_synth.g2o"))
+    meas, _ = with_outliers(meas, np.random.default_rng(0), 4)
+    opts = MMOptions(accelerated=True, rescale="dynamic")
+    s = DPGOSolver(meas, num_nodes=4, opts=opts, loss=Loss.HUBER,
+                   loss_reg=0.25, dtype=torch.float32, device=dev)
+    st, _ = s.run_steps(s.initialize(), 0, opts.max_rescale_count + 2)
+    p = s.problems(st)
+    assert p.dynamic and bool((st.scale_w < 1).any())
+    assert not torch.equal(p.Hred_d, s.probs.Hred_d)
+    args = stpcg_inputs(p, st)
+    tnt = opts.tnt
+    kw = dict(max_iters=tnt.max_tCG_iterations, kappa_fgr=tnt.kappa_fgr,
+              theta=tnt.theta)
+    act = torch.ones(4, dtype=torch.bool, device=dev)
+    for Delta in (1.0, 100.0):
+        Dl = torch.full((4,), Delta, device=dev)
+        h, _, _, k = stpcg_fused(*args, Dl, act, **kw)
+        hr, _, _, kr = stpcg_fused_reference(*args, Dl, act, **kw)
+        assert torch.equal(k.cpu(), kr.cpu())
+        np.testing.assert_allclose(h.cpu().numpy(), hr.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_d2_problem_launches_k1(dev):
+    """A d = 2 float32 problem on the card engages K1 (no silent plain CG):
+    a few steps on a small Manhattan-world graph count D = 2 launches."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.ops import stpcg_cuda
+    from dpgo_tpu_torch.synthetic import manhattan_world
+
+    meas, _, _ = manhattan_world(np.random.default_rng(0), num_poses=800,
+                                 grid=12, closures=800)
+    s = DPGOSolver(meas, num_nodes=4, dtype=torch.float32, device=dev)
+    assert s.probs.d == 2 and s.fused_stpcg_engaged()
+    before = stpcg_cuda.Launches.by_d[2]
+    _, _, (f, _) = s.run_steps_history(s.initialize(), 0, 10)
+    assert stpcg_cuda.Launches.by_d[2] > before
+    assert torch.isfinite(f).all()
 
 
 @pytest.mark.cuda

@@ -7,6 +7,7 @@ wrappers take the plain torch versions, because the tensors lie on the CPU.
 """
 
 import dataclasses
+import functools
 import os
 import shutil
 import subprocess
@@ -47,20 +48,26 @@ def _state_arrays(st) -> dict:
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """The JAX solver (f64, 40 poses, 2 nodes, d = 3) after 3 AMM steps."""
+@functools.lru_cache(maxsize=None)
+def _jax_run(d):
+    """The JAX solver (f64, 40 poses, 2 nodes) after 3 AMM steps."""
     from dpgo_tpu.driver import DPGOSolver
     from dpgo_tpu.solvers.mm import MMOptions
 
     rng = np.random.default_rng(42)
-    meas, _, _ = random_pose_graph(rng, num_poses=40, d=3, loop_closures=30,
+    meas, _, _ = random_pose_graph(rng, num_poses=40, d=d, loop_closures=30,
                                    noise=0.05)
     s = DPGOSolver(meas, num_nodes=2, opts=MMOptions(accelerated=True),
                    dtype=jnp.float64)
     st = s.initialize()
     st, _ = s.run_steps(st, jnp.zeros((), jnp.int32), 3)
     return meas, s, st
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The d = 3 run."""
+    return _jax_run(3)
 
 
 # ------------------------------------------------------------------ K2
@@ -168,21 +175,23 @@ def _t(x, dtype):
     return torch.tensor(np.asarray(x), dtype=dtype)[None]
 
 
-def test_stpcg_twin_matches_pallas_kernel(jax_run):
+@pytest.mark.parametrize("d", [3, 2])
+def test_stpcg_twin_matches_pallas_kernel(d):
     """K1's plain version vs the JAX package's fused STPCG Pallas kernel
     (interpret mode, f32, panels via block_panels) on the inputs of
     tests/test_pallas_stpcg.py: same k; h within rtol 2e-4 / atol 2e-5,
     Hh within rtol 2e-3 / atol 2e-4, |h|_M within rtol 1e-4 (that test's
-    tolerances); an inactive lane gives a zero step with k = 0."""
+    tolerances); an inactive lane gives a zero step with k = 0. For SE(3)
+    and SE(2) graphs (the kernel's two instantiations)."""
     from dpgo_tpu.ops import pallas_stpcg as pk
     from dpgo_tpu.solvers.tnt import TNTParams
 
     from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
 
-    _, s, st = jax_run
+    _, s, st = _jax_run(d)
     f32 = jnp.float32
     p, pf, Q, nabla, grad, pgrad, Sb = _tnt_entry(s, st, f32)
-    d = p.d
+    assert p.d == d
     n = p.pose_mask.shape[0]
     n_pad = max(-(-n // pk.LANE) * pk.LANE, pk.LANE)
     Hpan = jnp.asarray(pk.block_panels(np.asarray(p.Hred_d, np.float64), d,
@@ -285,17 +294,45 @@ def test_kernel_build_needs_nvcc(monkeypatch):
 # ------------------------------------------------------------- problem
 
 
-def test_dense_problem_arrays_match_jax(jax_run):
+@pytest.mark.parametrize("d", [3, 2])
+def test_g2o_reader_matches_jax(tmp_path, d):
+    """A graph written as EDGE_SE2 / EDGE_SE3:QUAT text reads back through
+    the port's io/g2o.py exactly as through the JAX package's reader."""
+    from dpgo_tpu.io.g2o import read_g2o_file as jax_read
+
+    from dpgo_tpu_torch.io.g2o import read_g2o_file, write_g2o_file
+
+    meas, t, R = random_pose_graph(np.random.default_rng(5), num_poses=20,
+                                   d=d, loop_closures=10)
+    path = str(tmp_path / "graph.g2o")
+    write_g2o_file(path, t, R, _torch_meas(meas))
+    ours, ref = read_g2o_file(path), jax_read(path)
+    assert (ours.d, ours.num_poses) == (ref.d, ref.num_poses) == (d, 20)
+    for f in dataclasses.fields(ref):
+        np.testing.assert_array_equal(np.asarray(getattr(ours, f.name)),
+                                      np.asarray(getattr(ref, f.name)),
+                                      err_msg=f.name)
+
+
+@pytest.mark.parametrize("d", [3, 2])
+def test_dense_problem_arrays_match_jax(d):
     """build_node_problems' dense arrays equal the JAX package's to 1e-12
-    (f64; the host numpy build is the same code)."""
+    (f64; the host numpy build is the same code), for SE(3) and SE(2)
+    graphs; the dynamic-rescale selectors are equal."""
     from dpgo_tpu_torch.graph import build_multigraph
     from dpgo_tpu_torch.problem import build_node_problems
 
-    meas, s, _ = jax_run
+    meas, s, _ = _jax_run(d)
     _, _, mg = build_multigraph(_torch_meas(meas), 2)
     tp = build_node_problems(mg, xi=1e-11, precon_cond=1e6)
+    assert tp.d == d
+    for name in ("ipose", "imask"):
+        np.testing.assert_array_equal(getattr(tp, name).numpy(),
+                                      np.asarray(getattr(s.probs, name)),
+                                      err_msg=name)
     for name in ("Minv_red", "Hred_d", "precon_dense", "mG01_d", "mG11_d",
-                 "mG00_d", "W", "nvec", "diagT_inv", "null_V"):
+                 "mG00_d", "W", "nvec", "diagT_inv", "null_V", "SU",
+                 "scale_w", "wood_C"):
         np.testing.assert_allclose(getattr(tp, name).numpy(),
                                    np.asarray(getattr(s.probs, name)),
                                    rtol=0, atol=1e-12, err_msg=name)

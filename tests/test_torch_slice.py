@@ -1,8 +1,10 @@
 """The port's main path end to end against the JAX package, on the CPU:
-AMM-PGO# with the refined TNT preset on the dense path (d = 3), each package
-driven through its own DPGOSolver entry points from the same measurements."""
+AMM-PGO# with the refined TNT preset on the dense path (d = 3, and d = 2 for
+the parity test), each package driven through its own DPGOSolver entry points
+from the same measurements."""
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,25 +27,35 @@ def _torch_meas(meas):
                            for f in dataclasses.fields(meas)})
 
 
-@pytest.fixture(scope="module")
-def graph():
+@functools.lru_cache(maxsize=None)
+def _graph(d):
     rng = np.random.default_rng(42)
-    meas, _, _ = random_pose_graph(rng, num_poses=40, d=3, loop_closures=30,
+    meas, _, _ = random_pose_graph(rng, num_poses=40, d=d, loop_closures=30,
                                    noise=0.05)
     return meas
 
 
-@pytest.fixture(scope="module")
-def jax_run(graph):
+@functools.lru_cache(maxsize=None)
+def _jax_run(d):
     """The JAX solver (f64): initialize, then STEPS steps with history."""
     from dpgo_tpu.driver import DPGOSolver
     from dpgo_tpu.solvers.mm import MMOptions
 
-    s = DPGOSolver(graph, num_nodes=2, opts=MMOptions(accelerated=True),
+    s = DPGOSolver(_graph(d), num_nodes=2, opts=MMOptions(accelerated=True),
                    dtype=jnp.float64)
     st0 = s.initialize()
     st, _, (f, g) = s.run_steps_history(st0, jnp.zeros((), jnp.int32), STEPS)
     return s, st0, st, np.asarray(f), np.asarray(g)
+
+
+@pytest.fixture(scope="module")
+def graph():
+    return _graph(3)
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    return _jax_run(3)
 
 
 def _port(graph, **kw):
@@ -54,12 +66,14 @@ def _port(graph, **kw):
                       opts=MMOptions(accelerated=True), **kw)
 
 
-def test_slice_matches_jax_f64(graph, jax_run):
+@pytest.mark.parametrize("d", [3, 2])
+def test_slice_matches_jax_f64(d):
     """Same initialize(), then STEPS steps: per-step 2f / 2|grad| within
     rtol 1e-9, final Z.t / Z.R within atol 1e-8, and the Nesterov / restart
-    bookkeeping (s, gamma, hits0, hits1, num_osc) equal."""
-    js, jst0, jst, jf, jg = jax_run
-    ts = _port(graph, dtype=torch.float64)
+    bookkeeping (s, gamma, hits0, hits1, num_osc) equal; for SE(3) and for
+    SE(2) graphs."""
+    js, jst0, jst, jf, jg = _jax_run(d)
+    ts = _port(_graph(d), dtype=torch.float64)
     tst0 = ts.initialize()
     np.testing.assert_allclose(tst0.fobj.numpy(), np.asarray(jst0.fobj),
                                rtol=1e-12)
