@@ -22,10 +22,21 @@ nodes, float32, 150 iterations:
 Each path is checked against the same path run with the kernels' plain
 versions on the card, and against the exact global objective.
 
-Output: the card's name and power limit (nvidia-smi), one line per phase, a
-JSON line {"paths": {...}}, a JSON line {"kernels": [...]}, and last a JSON
-line {"ok": true, "device": {...}}. Any failed check raises, exits non-zero
-and prints no result. Without a CUDA device it exits with code 2.
+Each K1 phase holds the kernel against its plain version at every cluster
+size the card admits for the phase's shape (C CTAs per node, C in 1, 2, 4,
+8), and times it at the size the wrapper chooses: the kernel alone on the
+device (raw launches replayed from a CUDA graph, at every admitted size),
+the call with its wrapper (CUDA events), the plain version, the bytes it
+streams and its bound, and one torch.bmm over the operators as the
+yardstick of one matvec. K2 likewise. After every timed run, each path is
+profiled over steps 70-90 of a fresh run with torch.profiler (device ms per
+step, busy share, top kernels).
+
+Output: the card's name and power limit (nvidia-smi), one line per phase
+(every time beside the card's name and power limit), a JSON line
+{"paths": {...}}, a JSON line {"kernels": [...]}, and last a JSON line
+{"ok": true, "device": {...}}. Any failed check raises, exits non-zero and
+prints no result. Without a CUDA device it exits with code 2.
 """
 
 from __future__ import annotations
@@ -40,10 +51,21 @@ import tempfile
 import time
 
 ITERS = 150
+PROFILE_AT = 70  # the profiled window: steps 70-90 of a fresh run
+PROFILE_STEPS = 20
 NUM_NODES = 16
 SEED = 0
 DATASET = os.path.join("artifacts", "rim_synth.g2o")
 LOSS_REG = 0.25  # the CLI's default robust-loss parameter
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
+# bandwidth and float32 outside the tensor cores (the kernels' type).
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+# K2's float operations per matrix, counted from csrc/polar_so3.cu: the
+# normalization and 9 Newton steps (a determinant, an adjugate, two norms
+# and the scaled update, ~120 each); a det < 0 matrix adds ~200 for its flip.
+K2_FLOPS = 1110
+K2_FLIP_FLOPS = 200
 
 
 def fail(msg: str):
@@ -71,13 +93,53 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_polar_so3(rng, dev):
+def kernel_times(prof) -> dict:
+    """{name: (device ms, launches)} of the CUDA activity a torch.profiler
+    run recorded (kernels, copies and sets)."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        out[e.key] = (us / 1e3, e.count)
+    return out
+
+
+def graph_ms(launch, reps: int) -> float:
+    """Device milliseconds per launch: `reps` back-to-back calls of
+    launch(stream), a raw launch of one kernel into preallocated outputs,
+    captured in one CUDA graph and replayed (CUDA events, after a warm-up
+    replay). The kernel alone, without its wrapper's host work; torch's
+    profiler is kept out of this and of every timed run, since it is used
+    only after them."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(reps):
+            launch(stream)
+    return cuda_ms(graph.replay, 3) / reps
+
+
+def bound(nbytes: float, flops: float):
+    """The least milliseconds the card could take: bytes over the HBM rate
+    or operations over the float32 rate, whichever is larger, and which."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_polar_so3(rng, dev, card):
     """K2 against its plain version on 10,240 matrices (the rim paths'
     projection batch: 16 nodes x 640 poses), every fifth with det < 0, plus
     one zero matrix."""
     import numpy as np
     import torch
 
+    from dpgo_tpu_torch.ops import _build
     from dpgo_tpu_torch.ops.polar_so3_cuda import polar_so3_cuda
     from dpgo_tpu_torch.ops.so3 import polar_so3
     from dpgo_tpu_torch.synthetic import random_rotations
@@ -128,87 +190,216 @@ def phase_polar_so3(rng, dev):
 
     At = At[:n].contiguous()
     ms = cuda_ms(lambda: polar_so3_cuda(At), 200)
+    lib, out = _build.load(), torch.empty_like(At)
+    dev_ms = graph_ms(lambda stream: _build.check(lib.dpgo_polar_so3(
+        At.data_ptr(), out.data_ptr(), n, stream), "polar_so3"), 200)
     plain_ms = cuda_ms(lambda: polar_so3(At), 50)
-    print(f"K2 time at [{n}, 3, 3]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          "ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    n_neg = int(neg[:n].sum())
+    bnd, by = bound(2 * At.numel() * 4, n * K2_FLOPS + n_neg * K2_FLIP_FLOPS)
+    print(f"K2 time at [{n}, 3, 3] [{card}]: device {dev_ms:.4f} ms, call "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none; bound "
+          f"{bnd:.5f} ms ({by}: {2 * At.numel() * 4} bytes), device time "
+          f"at {bnd / dev_ms:.3f} of the bound")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=None)
 
 
-def phase_stpcg(label, p, st, tp, deltas=(1.0, 0.02, 100.0), timed=True):
+def k1_work(k, nrm, Delta, nd: int, d: int):
+    """What one K1 launch did on this data: (operator bytes streamed, bytes
+    of the bound, float operations). Per node, k matvecs with Hred and k - 1
+    with P after a boundary or kernel exit (|h|_M = Delta), else k. The
+    bound reads each operator a node used once, the vectors g, v0, Q, S once
+    and writes h, H h, |h|_M and k once."""
+    k, nrm, Delta = k.tolist(), nrm.tolist(), Delta.tolist()
+    op = nd * nd * 4
+    n_h = list(k)
+    n_p = [kk - (1 if kk and x == dl else 0)
+           for kk, x, dl in zip(k, nrm, Delta)]
+    streamed = (sum(n_h) + sum(n_p)) * op
+    vec = nd * d * 4
+    need = (sum(1 for x in n_h if x) + sum(1 for x in n_p if x)) * op \
+        + len(k) * (6 * vec + 4 + 1 + 8)
+    flops = (sum(n_h) + sum(n_p)) * 2 * nd * nd * d
+    return streamed, need, flops
+
+
+def k1_launch(args, Delta, active, kw, C):
+    """launch(stream): one raw K1 launch in clusters of C on the operator
+    and vector arguments `args`, into outputs allocated once here."""
+    import torch
+
+    from dpgo_tpu_torch.ops import _build
+    lib = _build.load()
+    g = args[2]
+    N, nd, d = g.shape
+    outs = (torch.empty_like(g), torch.empty_like(g),
+            torch.empty(N, dtype=torch.float32, device=g.device),
+            torch.empty(N, dtype=torch.int32, device=g.device))
+    ptrs = [x.data_ptr() for x in (*args, Delta, active, *outs)]
+
+    def launch(stream):
+        _build.check(lib.dpgo_stpcg(*ptrs, N, nd, d, C, kw["max_iters"],
+                                    kw["kappa_fgr"], kw["theta"], stream),
+                     "stpcg")
+    return launch
+
+
+def phase_stpcg(label, p, st, tp, card, deltas=(1.0, 0.02, 100.0),
+                timed=True):
     """K1 against its plain version on the problems `p` at the TNT-entry
-    quantities of every node at state `st`; node 0 is held to the
-    tolerances of tests/test_pallas_stpcg.py and to the same CG count for
-    each trust radius in `deltas`. The other nodes are reported: at a large
-    radius a node whose CG runs many iterations may stop one iteration
-    earlier or later in float32, where a residual meets the forcing target
-    within rounding. Returns the errors, the largest CG count and, when
-    `timed`, the kernel's and the plain version's times."""
+    quantities of every node at state `st`, at every cluster size the card
+    admits for this shape; node 0 is held to the tolerances of
+    tests/test_pallas_stpcg.py and to the same CG count for each trust
+    radius in `deltas`. The other nodes are reported: at a large radius a
+    node whose CG runs many iterations may stop one iteration earlier or
+    later in float32, where a residual meets the forcing target within
+    rounding. Returns the errors, the largest CG count, the cluster sizes
+    and, when `timed`, the times at Delta = 1 and 100 (device, call, plain,
+    per cluster size), the work, the bound and the torch.bmm yardstick."""
     import numpy as np
     import torch
 
     from dpgo_tpu_torch.ops.stpcg import stpcg_fused_reference
-    from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
+    from dpgo_tpu_torch.ops.stpcg_cuda import (CLUSTER_SIZES,
+                                               choose_cluster_size,
+                                               resident_clusters, stpcg_fused)
     from dpgo_tpu_torch.solvers.mm import stpcg_inputs
 
     check(p.fused_stpcg_supported(), f"{label}: K1 gate closed")
     args = stpcg_inputs(p, st)
     Q = args[4]
     N, nd, d = Q.shape
+    dev = Q.device
+    resident = resident_clusters(d, nd, dev)
+    chosen = choose_cluster_size(N, nd // d, resident)
+    sizes = [C for C in CLUSTER_SIZES if C <= nd // d and resident[C] > 0]
+    print(f"K1 {label} (D = {d}, {N} nodes, nd = {nd}) [{card}]: resident "
+          f"clusters by size {resident}, chosen C = {chosen}; held against "
+          f"plain at C in {sizes}")
     kw = dict(max_iters=tp.max_tCG_iterations, kappa_fgr=tp.kappa_fgr,
               theta=tp.theta)
-    active = torch.ones(N, dtype=torch.bool, device=Q.device)
+    active = torch.ones(N, dtype=torch.bool, device=dev)
     max_err, k_max = 0.0, 0
     for Delta in deltas:
-        Dl = torch.full((N,), Delta, dtype=torch.float32, device=Q.device)
-        h, Hh, nrm, k = stpcg_fused(*args, Dl, active, **kw)
+        Dl = torch.full((N,), Delta, dtype=torch.float32, device=dev)
         hr, Hhr, nrmr, kr = stpcg_fused_reference(*args, Dl, active, **kw)
-        torch.cuda.synchronize()
-        h0, hr0 = h[0].cpu().numpy(), hr[0].cpu().numpy()
-        err = float(np.abs(h0 - hr0).max())
-        max_err = max(max_err, err)
-        k_all = bool((k == kr).all())
-        k_max = max(k_max, int(k.max()))
-        print(f"K1 stpcg {label} (D = {d}) Delta={Delta}: node 0 k = "
-              f"{int(k[0])} (plain {int(kr[0])}), max |h - h_plain| = "
-              f"{err:.3e}, |h|_M = {float(nrm[0]):.6g} (plain "
-              f"{float(nrmr[0]):.6g}); all {N} nodes: same k {k_all}, max "
-              f"|h - h_plain| = {float((h - hr).abs().max()):.3e}")
-        if not k_all:
-            print(f"K1 {label} Delta={Delta}: k per node {k.tolist()}, plain "
-                  f"{kr.tolist()}")
-        check(int(k[0]) == int(kr[0]),
-              f"K1 {label}: node 0 k {int(k[0])} != {int(kr[0])}")
-        check(np.allclose(h0, hr0, rtol=2e-4, atol=2e-5),
-              f"K1 {label}: h outside rtol 2e-4 / atol 2e-5")
-        check(np.allclose(Hh[0].cpu().numpy(), Hhr[0].cpu().numpy(),
-                          rtol=2e-3, atol=2e-4),
-              f"K1 {label}: Hh outside rtol 2e-3 / atol 2e-4")
-        check(abs(float(nrm[0]) - float(nrmr[0]))
-              <= 1e-4 * abs(float(nrmr[0])),
-              f"K1 {label}: |h|_M outside rtol 1e-4")
-        check(bool(torch.isfinite(h).all()), f"K1 {label}: output not finite")
+        hr0 = hr[0].cpu().numpy()
+        for C in sizes:
+            h, Hh, nrm, k = stpcg_fused(*args, Dl, active, cluster=C, **kw)
+            torch.cuda.synchronize()
+            h0 = h[0].cpu().numpy()
+            err = float(np.abs(h0 - hr0).max())
+            max_err = max(max_err, err)
+            k_all = bool((k == kr).all())
+            k_max = max(k_max, int(k.max()))
+            print(f"K1 stpcg {label} (D = {d}) Delta={Delta} C={C}: node 0 "
+                  f"k = {int(k[0])} (plain {int(kr[0])}), max |h - h_plain| "
+                  f"= {err:.3e}, |h|_M = {float(nrm[0]):.6g} (plain "
+                  f"{float(nrmr[0]):.6g}); all {N} nodes: same k {k_all}, "
+                  f"max |h - h_plain| = {float((h - hr).abs().max()):.3e}")
+            if not k_all:
+                print(f"K1 {label} Delta={Delta} C={C}: k per node "
+                      f"{k.tolist()}, plain {kr.tolist()}")
+            check(int(k[0]) == int(kr[0]),
+                  f"K1 {label} C={C}: node 0 k {int(k[0])} != {int(kr[0])}")
+            check(np.allclose(h0, hr0, rtol=2e-4, atol=2e-5),
+                  f"K1 {label} C={C}: h outside rtol 2e-4 / atol 2e-5")
+            check(np.allclose(Hh[0].cpu().numpy(), Hhr[0].cpu().numpy(),
+                              rtol=2e-3, atol=2e-4),
+                  f"K1 {label} C={C}: Hh outside rtol 2e-3 / atol 2e-4")
+            check(abs(float(nrm[0]) - float(nrmr[0]))
+                  <= 1e-4 * abs(float(nrmr[0])),
+                  f"K1 {label} C={C}: |h|_M outside rtol 1e-4")
+            check(bool(torch.isfinite(h).all()),
+                  f"K1 {label} C={C}: output not finite")
     inactive = active.clone()
     inactive[0] = False
-    Dl = torch.ones(N, dtype=torch.float32, device=Q.device)
-    h, _, _, k = stpcg_fused(*args, Dl, inactive, **kw)
-    check(int(k[0]) == 0 and bool((h[0] == 0).all()),
-          f"K1 {label}: inactive lane did not return a zero step with k = 0")
+    Dl = torch.ones(N, dtype=torch.float32, device=dev)
+    for C in sizes:
+        h, _, _, k = stpcg_fused(*args, Dl, inactive, cluster=C, **kw)
+        check(int(k[0]) == 0 and bool((h[0] == 0).all()),
+              f"K1 {label} C={C}: inactive lane did not return a zero step "
+              "with k = 0")
+    out = dict(max_abs_err=max_err, k_max=k_max, cluster=chosen,
+               resident=resident)
     if not timed:
-        return dict(max_abs_err=max_err, k_max=k_max)
+        return out
 
-    ms = cuda_ms(lambda: stpcg_fused(*args, Dl, active, **kw), 20)
-    plain_ms = cuda_ms(lambda: stpcg_fused_reference(*args, Dl, active, **kw),
-                       20)
-    D100 = torch.full((N,), 100.0, dtype=torch.float32, device=Q.device)
-    k100 = stpcg_fused(*args, D100, active, **kw)[3]
-    ms100 = cuda_ms(lambda: stpcg_fused(*args, D100, active, **kw), 20)
-    plain100 = cuda_ms(
-        lambda: stpcg_fused_reference(*args, D100, active, **kw), 20)
-    print(f"K1 time {label}, all {N} nodes at nd = {nd}: Delta = 1 kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; Delta = 100 (k = "
-          f"{k100.tolist()}) kernel {ms100:.4f} ms, plain {plain100:.4f} ms")
-    return dict(max_abs_err=max_err, k_max=k_max, ms=ms, plain_ms=plain_ms,
-                ms100=ms100, plain_ms100=plain100)
+    x = args[2]
+    lib_ms = cuda_ms(lambda: torch.bmm(args[0], x), 50)
+    print(f"K1 {label} [{card}]: torch.bmm(Hred, x) at [{N}, {nd}, {nd}] x "
+          f"[{N}, {nd}, {d}], per matvec: {lib_ms:.4f} ms")
+    out["library_ms"] = lib_ms
+    for Delta in (1.0, 100.0):
+        Dl = torch.full((N,), Delta, dtype=torch.float32, device=dev)
+        _, _, nrm, k = stpcg_fused(*args, Dl, active, **kw)
+        streamed, need, flops = k1_work(k, nrm, Dl, nd, d)
+        bnd, by = bound(need, flops)
+        ms = cuda_ms(lambda: stpcg_fused(*args, Dl, active, **kw), 20)
+        dev_by_c = {C: graph_ms(k1_launch(args, Dl, active, kw, C), 20)
+                    for C in sizes}
+        plain = cuda_ms(lambda: stpcg_fused_reference(*args, Dl, active,
+                                                      **kw), 20)
+        dms = dev_by_c[chosen]
+        tbs = streamed / (dms * 1e-3) / 1e12
+        print(f"K1 time {label}, Delta = {Delta}, C = {chosen} [{card}]: k "
+              f"per node {k.tolist()}; device {dms:.4f} ms, call {ms:.4f} "
+              f"ms, plain {plain:.4f} ms; streamed {streamed / 1e6:.1f} MB "
+              f"at {tbs:.3f} TB/s ({tbs * 1e12 / HBM_BYTES_S:.3f} of "
+              f"3.35); bound {bnd:.4f} ms ({by}: {need / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP), device time at "
+              f"{bnd / dms:.3f} of the bound; device ms by C "
+              + ", ".join(f"{C}: {t:.4f}" for C, t in dev_by_c.items()))
+        tag = "" if Delta == 1.0 else "100"
+        out.update({f"ms{tag}": ms, f"device_ms{tag}": dms,
+                    f"plain_ms{tag}": plain, f"bound_ms{tag}": bnd,
+                    f"bound_by{tag}": by, f"streamed_bytes{tag}": streamed,
+                    f"tb_s{tag}": tbs, f"k{tag}": k.tolist(),
+                    f"device_ms_by_cluster{tag}": dev_by_c})
+    return out
+
+
+def profile_path(name, solver, init, card):
+    """Steps PROFILE_AT to PROFILE_AT + PROFILE_STEPS of a fresh run of one
+    path under torch.profiler, after PROFILE_STEPS steps timed without it:
+    device ms per step (all CUDA activity), its share of the unprofiled wall
+    ms per step (the busy share), K1's and K2's device ms and launches per
+    step, and the six largest kernels; printed and returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    steps = PROFILE_STEPS
+    st, k = solver.run_steps(solver.initialize(*init), 0, PROFILE_AT - steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, k = solver.run_steps(st, k, steps)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver.run_steps(st, k, steps)
+        torch.cuda.synchronize()
+    kt = kernel_times(prof)
+    total = sum(ms for ms, _ in kt.values()) / steps
+
+    def of(name):
+        hits = [v for key, v in kt.items() if name in key]
+        return (sum(ms for ms, _ in hits) / steps,
+                sum(n for _, n in hits) / steps)
+
+    k1_ms, k1_n = of("stpcg_kernel")
+    k2_ms, k2_n = of("polar_so3_kernel")
+    top = sorted(kt.items(), key=lambda kv: -kv[1][0])[:6]
+    prof = {"device_ms_per_step": total, "wall_ms_per_step": wall_ms,
+            "busy_share": total / wall_ms, "k1_ms_per_step": k1_ms,
+            "k1_launches_per_step": k1_n, "k2_ms_per_step": k2_ms,
+            "k2_launches_per_step": k2_n,
+            "top": [[key[:80], ms / steps] for key, (ms, _) in top]}
+    print(f"{name} profile of steps {PROFILE_AT}-{PROFILE_AT + PROFILE_STEPS}"
+          f" [{card}]: device {total:.3f} ms/step of {wall_ms:.3f} wall "
+          f"(busy share {total / wall_ms:.3f}); K1 {k1_ms:.3f} ms/step over "
+          f"{k1_n:.2f} launches, K2 {k2_ms:.4f} ms/step over {k2_n:.2f}; "
+          "top: " + "; ".join(f"{n} {ms:.3f}" for n, ms in prof["top"]))
+    return prof
 
 
 def run_slice(solver, init, label, steps):
@@ -266,7 +457,7 @@ def run_path(name, solver, init, needs, card, steps=ITERS):
     stpcg_cuda.Launches.reset()
     f0, fh, f_exact, its, syncs, st = run_slice(solver, init, name, steps)
     launches = kernel_counts()
-    print(f"{name} with kernels: 2f init {f0:.6f}, 2f at {steps} "
+    print(f"{name} with kernels [{card}]: 2f init {f0:.6f}, 2f at {steps} "
           f"{fh[-1]:.6f} (exact oracle {f_exact:.6f}), {its:.2f} it/s, "
           f"{syncs:.2f} host syncs/step, launches {launches} over two runs "
           f"of {steps} steps")
@@ -288,7 +479,8 @@ def run_path(name, solver, init, needs, card, steps=ITERS):
     check(before == kernel_counts(), f"{name}: the plain run launched a "
           "kernel")
     rel = abs(fh[-1] - fhp[-1]) / abs(fhp[-1])
-    print(f"{name} with plain versions: 2f at {steps} {fhp[-1]:.6f}, "
+    print(f"{name} with plain versions [{card}]: 2f at {steps} "
+          f"{fhp[-1]:.6f}, "
           f"{its_p:.2f} it/s, {syncs_p:.2f} host syncs/step; kernel vs plain "
           f"2f relative difference {rel:.3e}")
     check(rel <= 1e-3, f"{name}: kernel and plain runs disagree: {rel} > "
@@ -352,7 +544,7 @@ def main() -> int:
     _build.load(verbose=True)
     print(f"kernel build and load: {time.perf_counter() - t0:.2f} s")
 
-    k2 = phase_polar_so3(np.random.default_rng(SEED), dev)
+    k2 = phase_polar_so3(np.random.default_rng(SEED), dev, card)
 
     def make_solver(meas, label, **kw):
         t0 = time.perf_counter()
@@ -375,10 +567,11 @@ def main() -> int:
     solver, init = make_solver(rim, f"rim: {DATASET}",
                                opts=MMOptions(accelerated=True))
     st, _ = solver.run_steps(solver.initialize(*init), 0, 3)
-    k1["rim"] = phase_stpcg("rim", solver.probs, st, tp)
+    k1["rim"] = phase_stpcg("rim", solver.probs, st, tp, card)
     paths["rim"], launches["rim"], _ = run_path(
         "rim", solver, init, ("polar_so3", "stpcg"), card)
-    del solver, st
+    to_profile = [("rim", solver, init)]
+    del st
 
     # Path 2: 2-D Manhattan world through the EDGE_SE2 reader (K1 at D = 2).
     meas2, t_true, R_true = manhattan_world(
@@ -392,7 +585,7 @@ def main() -> int:
                                f"(seed {SEED + 1})",
                                opts=MMOptions(accelerated=True))
     st, _ = solver.run_steps(solver.initialize(*init), 0, 3)
-    k1["manhattan"] = phase_stpcg("manhattan", solver.probs, st, tp)
+    k1["manhattan"] = phase_stpcg("manhattan", solver.probs, st, tp, card)
     # Near the chordal start the preconditioner is close to exact and CG
     # ends after one iteration on every node; from the true rotations turned
     # by N(0, 0.3) rad per pose, at a radius CG stays inside, it runs more.
@@ -402,12 +595,14 @@ def main() -> int:
     turn = np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)
     st = solver.initialize(None, R_true @ turn)
     k1["manhattan_far"] = phase_stpcg("manhattan, far start", solver.probs,
-                                      st, tp, deltas=(1e4,), timed=False)
+                                      st, tp, card, deltas=(1e4,),
+                                      timed=False)
     check(k1["manhattan_far"]["k_max"] > 1, "manhattan: K1 ran no second "
           "CG iteration at the far start")
     paths["manhattan"], launches["manhattan"], _ = run_path(
         "manhattan", solver, init, ("stpcg_d2",), card)
-    del solver, st
+    to_profile.append(("manhattan", solver, init))
+    del st
 
     # Path 3: rim_synth with outliers, Huber + dynamic rescale (K1 at D = 3
     # on the reweighted Hred, K2).
@@ -423,7 +618,8 @@ def main() -> int:
     pw = solver.problems(st)
     check(pw.dynamic and bool((st.scale_w < 1).any()),
           "robust: no rescale before the K1 phase")
-    k1["robust"] = phase_stpcg("robust (reweighted Hred)", pw, st, tp)
+    k1["robust"] = phase_stpcg("robust (reweighted Hred)", pw, st, tp,
+                               card)
     del pw
     paths["robust"], launches["robust"], st = run_path(
         "robust", solver, init, ("polar_so3", "stpcg"), card)
@@ -443,7 +639,13 @@ def main() -> int:
           f"weight {w_in}")
     paths["robust"].update(min_scale_w=sw_min, outlier_weight=w_out,
                            inlier_weight=w_in)
-    del solver, st
+    to_profile.append(("robust", solver, init))
+    del st
+
+    # torch.profiler runs only now, after every timed run.
+    for name, solver, init in to_profile:
+        paths[name]["profile"] = profile_path(name, solver, init, card)
+    del to_profile, solver
 
     def total(kern):
         return sum(c[kern] for c in launches.values())
@@ -452,7 +654,11 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": total(name),
                 "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
+                "device_ms": stats["device_ms"],
                 "plain_ms": stats["plain_ms"],
+                "bound_ms": stats["bound_ms"],
+                "bound_by": stats["bound_by"],
+                "library_ms": stats["library_ms"],
                 "launches_by_path": {p: c[name]
                                      for p, c in launches.items()}}
 

@@ -3,8 +3,10 @@
 `problem_from_numpy` and `state_from_numpy` take the leaves of a
 dpgo_tpu `NodeProblem` / `MMState` as numpy arrays keyed by field name (the
 node-stacked pytrees converted with `np.asarray`) and build the port's
-counterparts, so both packages can start from one state. Dense problems at
-d = 2 and 3 are taken, reweighted (dynamic) ones included. Fields the port
+counterparts on `device` (named by the caller: the tests carry the JAX
+package's state to the CPU), so both packages can start from one state.
+Dense problems at d = 2 and 3 are taken, reweighted (dynamic) ones
+included. Fields the port
 does not carry (fused-kernel panels, the one-hot scatter, the block-Jacobi
 preconditioner, segment path, Anderson history) are ignored.
 """
@@ -26,7 +28,7 @@ _STATE_INT_FIELDS = ("hits0", "hits1", "osc_buf", "num_osc",
                      "rescale_count")
 
 
-def problem_from_numpy(arrays: dict, device="cpu",
+def problem_from_numpy(arrays: dict, device,
                        dtype=torch.float64) -> NodeProblem:
     """Port NodeProblem from the JAX NodeProblem's fields.
 
@@ -51,7 +53,7 @@ def _node_state(z: dict, device, dtype) -> NodeState:
     return NodeState(t=f("t"), R=f("R"), th=f("th"), Rh=f("Rh"))
 
 
-def state_from_numpy(arrays: dict, device="cpu",
+def state_from_numpy(arrays: dict, device,
                      dtype=torch.float64) -> MMState:
     """Port MMState from the JAX MMState's fields; Z and Z_prev are dicts
     of the NodeState fields t, R, th, Rh."""

@@ -21,7 +21,7 @@ from dpgo_tpu_torch.sesync import (chordal_initialization,
                                    recover_translations_global)
 from dpgo_tpu_torch.solvers import mm as mm_mod
 from dpgo_tpu_torch.solvers.mm import MMOptions, MMState, init_state
-from dpgo_tpu_torch.utils import HostSyncs
+from dpgo_tpu_torch.utils import HostSyncs, resolve_device
 
 
 def communicate(st: MMState, halo_owner, halo_lpose, halo_dc=None) -> MMState:
@@ -41,20 +41,21 @@ class DPGOSolver:
 
     Ported scope: AMM-PGO#, dense per-node operators, d = 2 and 3, every
     loss kernel with static or dynamic rescale, centralized chordal
-    initialization. A problem copy with
+    initialization. Runs on the CUDA card unless `device` names another
+    (`device="cpu"`). A problem copy with
     `dataclasses.replace(solver.probs, kernels=False)` runs the plain torch
     versions of the two CUDA kernels on any device."""
 
     def __init__(self, meas: Measurements, num_nodes: int,
                  opts: MMOptions | None = None,
                  loss: Loss = Loss.TRIVIAL, loss_reg: float = 1.0,
-                 dtype=torch.float64, device="cpu",
+                 dtype=torch.float64, device=None,
                  dense_limit: int = 4096, segment_limit: int = 2048):
         self.meas = meas
         self.num_nodes = num_nodes
         self.opts = opts or MMOptions()
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.part, self.nodes, self.mg = build_multigraph(meas, num_nodes)
         precon_cond = self.opts.precon_cond
         if precon_cond is None:

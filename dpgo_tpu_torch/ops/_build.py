@@ -32,13 +32,16 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each entry point (all return cudaError_t as int).
 _SIGNATURES = {
     # (A, R, n, stream)
     "dpgo_polar_so3": [_P, _P, ctypes.c_longlong, _P],
-    # (H, P, g, v0, Q, S, Delta, active, target, h, Hh, norm, k, scratch,
-    #  N, nd, d, max_iters, stream)
-    "dpgo_stpcg": [_P] * 14 + [_I, _I, _I, _I, _P],
+    # (H, P, g, v0, Q, S, Delta, active, h, Hh, norm, k, N, nd, d, cluster,
+    #  max_iters, kappa_fgr, theta, stream)
+    "dpgo_stpcg": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
+    # (nd, d, cluster, int* resident clusters)
+    "dpgo_stpcg_clusters": [_I, _I, _I, _P],
 }
 
 

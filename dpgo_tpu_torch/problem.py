@@ -35,6 +35,7 @@ from dpgo_tpu_torch.graph import MultiGraph
 from dpgo_tpu_torch.losses import Loss, loss_value, loss_weight
 from dpgo_tpu_torch.manifold import project_sod
 from dpgo_tpu_torch.ops import stpcg_cuda
+from dpgo_tpu_torch.utils import resolve_device
 
 
 def _nsum(x: torch.Tensor) -> torch.Tensor:
@@ -629,10 +630,12 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
                         precon_cond: float = 1e6,
                         dense_limit: int = 4096,
                         segment_limit: int = 2048,
-                        dtype=torch.float64, device="cpu") -> NodeProblem:
+                        dtype=torch.float64, device=None) -> NodeProblem:
     """Build a stacked NodeProblem (leading node axis) from a MultiGraph:
     the dense branch of dpgo_tpu/problem.py::build_node_problems, as the
-    same host numpy in float64, then moved to `device` in `dtype`."""
+    same host numpy in float64, then moved to `device` in `dtype` (the CUDA
+    card unless `device` names another)."""
+    device = resolve_device(device)
     N, n0m, d = mg.num_nodes, mg.n0_max, mg.d
     if n0m > segment_limit:
         raise NotImplementedError("the segment path (blocks above "

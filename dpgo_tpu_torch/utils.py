@@ -5,6 +5,18 @@ from __future__ import annotations
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds on: the CUDA card unless the caller
+    names another (`device="cpu"` for the CPU). Raises when a CUDA device is
+    asked for on a host without one; never picks the CPU by itself."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("dpgo_tpu_torch runs on a CUDA card by default and "
+                           "this host has none; pass device='cpu' to run on "
+                           "the CPU")
+    return dev
+
+
 class HostSyncs:
     """Counts the device-to-host reads of control flags.
 

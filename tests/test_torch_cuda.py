@@ -50,17 +50,17 @@ def test_polar_so3_kernel_matches_plain(dev, rng):
     np.testing.assert_allclose(R[7].cpu().numpy(), np.eye(3), atol=0)
 
 
-def _random_stpcg_case(dev, rng, d, n):
-    """K1 against its plain version on a random SPD problem of N = 3 nodes
-    with n poses of size d: the same k, h within rtol 2e-4 / atol 2e-5,
-    Hh within rtol 2e-3 / atol 2e-4, |h|_M within rtol 1e-4; the inactive
-    lane gives a zero step with k = 0."""
+def _random_stpcg_case(dev, rng, d, n, N=3, cluster=None):
+    """K1 against its plain version on a random SPD problem of N nodes with
+    n poses of size d (node 1 inactive), at the given cluster size (None:
+    the wrapper's choice): the same k per node, h within rtol 2e-4 / atol
+    2e-5, Hh within rtol 2e-3 / atol 2e-4, |h|_M within rtol 1e-4; the
+    inactive node gives a zero step with k = 0."""
     from dpgo_tpu_torch.manifold import project_sod
     from dpgo_tpu_torch.ops import stpcg_cuda
     from dpgo_tpu_torch.ops.stpcg import _proj_tall, stpcg_fused_reference
     from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
 
-    N = 3
     nd = d * n
     M = rng.normal(size=(N, nd, nd)) / np.sqrt(nd)
     H = M @ M.transpose(0, 2, 1) + 0.1 * np.eye(nd)
@@ -78,11 +78,13 @@ def _random_stpcg_case(dev, rng, d, n):
     g = _proj_tall(Qt, f(rng.normal(size=(N, nd, d)))).contiguous()
     v0 = _proj_tall(Qt, Pt @ g).contiguous()
     kw = dict(max_iters=250, kappa_fgr=0.05, theta=0.9)
-    act = torch.tensor([True, False, True], device=dev)
+    act = torch.ones(N, dtype=torch.bool, device=dev)
+    act[1] = False
     for Delta in (100.0, 0.02):
         Dl = torch.full((N,), Delta, device=dev)
         before = stpcg_cuda.Launches.by_d[d]
-        h, Hh, nrm, k = stpcg_fused(Ht, Pt, g, v0, Qt, St, Dl, act, **kw)
+        h, Hh, nrm, k = stpcg_fused(Ht, Pt, g, v0, Qt, St, Dl, act,
+                                    cluster=cluster, **kw)
         assert stpcg_cuda.Launches.by_d[d] == before + 1
         hr, Hhr, nrmr, kr = stpcg_fused_reference(Ht, Pt, g, v0, Qt, St, Dl,
                                                   act, **kw)
@@ -99,7 +101,7 @@ def _random_stpcg_case(dev, rng, d, n):
 @pytest.mark.cuda
 def test_stpcg_kernel_matches_plain(dev, rng):
     """K1 at D = 3 against its plain version (f32) on a random SPD
-    problem (see _random_stpcg_case)."""
+    problem (see _random_stpcg_case), at the wrapper's cluster size."""
     _random_stpcg_case(dev, rng, 3, 50)
 
 
@@ -110,6 +112,76 @@ def test_stpcg_kernel_d2_matches_plain(dev, rng, n):
     Manhattan-world node block, whose rows are only 8-byte aligned, and
     nd = 200, a multiple of 4 (16-byte loads)."""
     _random_stpcg_case(dev, rng, 2, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(3, 50), (3, 13), (2, 625), (2, 11)])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_stpcg_kernel_each_cluster_size(dev, rng, d, n, cluster):
+    """K1 at every cluster size against its plain version, at D = 3 and
+    D = 2, with pose counts that are multiples of neither C nor 4 (50, 13,
+    625, 11), so the CTAs own unequal pose ranges; node 1 is inactive."""
+    _random_stpcg_case(dev, rng, d, n, cluster=cluster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 8])
+def test_stpcg_kernel_more_nodes_than_resident(dev, rng, cluster):
+    """Eight nodes more than the card holds clusters at once, at the
+    wrapper's choice (then C = 1) and in clusters of 8: the clusters run in
+    waves and match the plain version."""
+    from dpgo_tpu_torch.ops.stpcg_cuda import (choose_cluster_size,
+                                               resident_clusters)
+
+    resident = resident_clusters(3, 3 * 20, dev)
+    N = resident[cluster or 1] + 8
+    if cluster is None:
+        assert choose_cluster_size(N, 20, resident) == 1
+    _random_stpcg_case(dev, rng, 3, 20, N=N, cluster=cluster)
+
+
+@pytest.mark.cuda
+def test_stpcg_cluster_choice_on_the_card(dev):
+    """At the rim slice's shape (16 nodes, nd = 1920, D = 3) the card holds
+    clusters of every size, and the wrapper picks the largest with which
+    all 16 are resident."""
+    from dpgo_tpu_torch.ops.stpcg_cuda import (CLUSTER_SIZES,
+                                               choose_cluster_size,
+                                               resident_clusters)
+
+    resident = resident_clusters(3, 1920, dev)
+    assert all(resident[C] > 0 for C in CLUSTER_SIZES), resident
+    C = choose_cluster_size(16, 640, resident)
+    assert resident[C] >= 16
+    assert all(resident[c] < 16 for c in CLUSTER_SIZES if c > C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 10241])
+def test_polar_so3_kernel_ragged_counts(dev, rng, n):
+    """K2 at counts that are not multiples of its 64-matrix block (and one
+    that is) within 1e-5 of its plain version, on matrices with separated
+    singular values, every fifth with det < 0; the kernel writes nothing
+    past the n-th matrix of its output."""
+    from dpgo_tpu_torch.ops import _build
+    from dpgo_tpu_torch.ops.polar_so3_cuda import polar_so3_cuda
+    from dpgo_tpu_torch.ops.so3 import polar_so3
+    from dpgo_tpu_torch.synthetic import random_rotations
+
+    sigma = np.array([1.0, 2.0, 3.5]) + rng.uniform(0, 0.5, size=(n, 3))
+    A = random_rotations(rng, n) @ (
+        sigma[:, :, None] * random_rotations(rng, n).transpose(0, 2, 1))
+    A[::5] *= -1.0
+    At = torch.tensor(A, dtype=torch.float32, device=dev)
+    R = polar_so3_cuda(At)
+    np.testing.assert_allclose(R.cpu().numpy(), polar_so3(At).cpu().numpy(),
+                               atol=1e-5)
+    buf = torch.full((n + 1, 3, 3), 7.0, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(_build.load().dpgo_polar_so3(At.data_ptr(), buf.data_ptr(),
+                                              n, stream), "polar_so3")
+    assert torch.equal(buf[:n], R)
+    assert bool((buf[n] == 7.0).all())
 
 
 @pytest.mark.cuda

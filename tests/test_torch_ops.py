@@ -276,6 +276,116 @@ def test_stpcg_wrapper_raises_off_cpu():
                     kappa_fgr=0.05, theta=0.9)
 
 
+def _meta_stpcg_args(N=2, n=5, d=3):
+    m = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    nd = n * d
+    return dict(H=m(N, nd, nd), P=m(N, nd, nd), g=m(N, nd, d),
+                v0=m(N, nd, d), Q=m(N, nd, d), S=m(N, nd, d), Delta=m(N),
+                active=m(N).bool())
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("valid", ValueError, "unsupported device"),
+    ("valid_d2", ValueError, "unsupported device"),
+    ("cluster8_of_5_poses", ValueError, "cluster 8"),
+    ("cluster3", ValueError, "cluster 3"),
+    ("d4", ValueError, "d in"),
+    ("H_shape", ValueError, "H has shape"),
+    ("S_float64", TypeError, "S is torch.float64"),
+    ("active_float", TypeError, "active is torch.float32"),
+    ("Delta_shape", ValueError, "Delta has shape"),
+    ("Q_strided", ValueError, "Q must be contiguous"),
+    ("P_on_cpu", ValueError, "P on cpu"),
+])
+def test_stpcg_wrapper_argument_checks(case, exc, match):
+    """K1's wrapper checks its arguments (d, shapes, float32 operators and
+    vectors, a bool `active`, contiguity, the cluster size: one of 1, 2, 4,
+    8 and at most the pose count) before anything reaches a device, on meta
+    tensors; with valid arguments a meta tensor still raises rather than
+    taking the plain version."""
+    from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
+
+    kw = _meta_stpcg_args(d=2 if case == "valid_d2" else 3)
+    cluster = None
+    if case == "cluster8_of_5_poses":
+        cluster = 8
+    elif case == "cluster3":
+        cluster = 3
+    elif case == "d4":
+        kw = _meta_stpcg_args(d=4)
+    elif case == "H_shape":
+        kw["H"] = torch.empty((2, 15, 14), device="meta")
+    elif case == "S_float64":
+        kw["S"] = kw["S"].double()
+    elif case == "active_float":
+        kw["active"] = kw["active"].float()
+    elif case == "Delta_shape":
+        kw["Delta"] = torch.empty((3,), device="meta")
+    elif case == "Q_strided":
+        kw["Q"] = torch.empty((2, 3, 15), device="meta").transpose(1, 2)
+    elif case == "P_on_cpu":
+        kw["P"] = torch.empty(kw["P"].shape)
+    with pytest.raises(exc, match=match):
+        stpcg_fused(*kw.values(), max_iters=5, kappa_fgr=0.05, theta=0.9,
+                    cluster=cluster)
+
+
+@pytest.mark.parametrize("N,npose,resident,expect", [
+    # rim: 16 nodes of 640 poses; 16 clusters of 8 fit -> 8.
+    (16, 640, {1: 132, 2: 66, 4: 32, 8: 16}, 8),
+    # A GPC layout that holds only 14 clusters of 8 -> 4.
+    (16, 640, {1: 132, 2: 66, 4: 32, 8: 14}, 4),
+    # Fewer poses than CTAs: C never exceeds the pose count.
+    (16, 3, {1: 132, 2: 66, 4: 32, 8: 16}, 2),
+    (4, 1, {1: 132, 2: 66, 4: 32, 8: 16}, 1),
+    # More nodes than any size holds at once -> 1 (waves).
+    (200, 640, {1: 132, 2: 66, 4: 32, 8: 16}, 1),
+    (60, 640, {1: 132, 2: 66, 4: 32, 8: 16}, 2),
+    # A CTA of one per node exceeds shared memory: the smallest that fits.
+    (200, 1365, {1: 0, 2: 66, 4: 32, 8: 16}, 2),
+    (16, 1365, {1: 0, 2: 66, 4: 32, 8: 16}, 8),
+])
+def test_choose_cluster_size(N, npose, resident, expect):
+    """The wrapper's cluster size: the largest C in {1, 2, 4, 8} with which
+    all N clusters are resident at once and C <= npose; 1 (or the smallest
+    that fits) when none is."""
+    from dpgo_tpu_torch.ops.stpcg_cuda import choose_cluster_size
+
+    assert choose_cluster_size(N, npose, resident) == expect
+
+
+def test_choose_cluster_size_raises_when_nothing_fits():
+    from dpgo_tpu_torch.ops.stpcg_cuda import choose_cluster_size
+
+    with pytest.raises(ValueError, match="no cluster size"):
+        choose_cluster_size(16, 640, {1: 0, 2: 0, 4: 0, 8: 0})
+
+
+@pytest.mark.parametrize("entry", ["DPGOSolver", "build_node_problems"])
+def test_entry_points_default_to_the_card(entry):
+    """DPGOSolver and build_node_problems without `device` build on the
+    CUDA card; on a host without one they raise instead of building on the
+    CPU."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.graph import build_multigraph
+    from dpgo_tpu_torch.problem import build_node_problems
+
+    meas = _torch_meas(random_pose_graph(np.random.default_rng(1),
+                                         num_poses=12, d=3,
+                                         loop_closures=4)[0])
+
+    def build():
+        if entry == "DPGOSolver":
+            return DPGOSolver(meas, num_nodes=2).probs
+        return build_node_problems(build_multigraph(meas, 2)[2])
+
+    if torch.cuda.is_available():
+        assert build().Hred_d.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+
+
 def test_kernel_build_needs_nvcc(monkeypatch):
     """Without the CUDA toolkit the kernel build raises (no silent
     fallback)."""
@@ -324,7 +434,7 @@ def test_dense_problem_arrays_match_jax(d):
 
     meas, s, _ = _jax_run(d)
     _, _, mg = build_multigraph(_torch_meas(meas), 2)
-    tp = build_node_problems(mg, xi=1e-11, precon_cond=1e6)
+    tp = build_node_problems(mg, xi=1e-11, precon_cond=1e6, device="cpu")
     assert tp.d == d
     for name in ("ipose", "imask"):
         np.testing.assert_array_equal(getattr(tp, name).numpy(),
@@ -348,8 +458,8 @@ def test_problem_ops_match_jax_on_converted_state(jax_run, rng):
     from dpgo_tpu_torch.convert import problem_from_numpy, state_from_numpy
 
     meas, s, st = jax_run
-    tp = problem_from_numpy(_problem_arrays(s.probs))
-    ts = state_from_numpy(_state_arrays(st))
+    tp = problem_from_numpy(_problem_arrays(s.probs), device="cpu")
+    ts = state_from_numpy(_state_arrays(st), device="cpu")
     tol = dict(rtol=1e-11, atol=1e-12)
 
     t, R = s.gather_global(st)

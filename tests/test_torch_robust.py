@@ -67,7 +67,8 @@ def test_robust_solver_matches_jax_f64(graph, loss, rescale):
 
     ts = DPGOSolver(_torch_meas(graph), num_nodes=2,
                     opts=MMOptions(accelerated=True, rescale=rescale),
-                    loss=Loss(loss), loss_reg=LOSS_REG, dtype=torch.float64)
+                    loss=Loss(loss), loss_reg=LOSS_REG, dtype=torch.float64,
+                    device="cpu")
     tst, k, (tf, tg) = ts.run_steps_history(ts.initialize(), 0, STEPS)
     assert k == STEPS
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-9)
@@ -108,7 +109,7 @@ def test_with_weights_matches_jax(graph):
                  1.0)
     jw = jax.vmap(jax_with_weights)(jp, jnp.asarray(w))
     tp = problem_from_numpy({f.name: getattr(jp, f.name)
-                             for f in dataclasses.fields(jp)})
+                             for f in dataclasses.fields(jp)}, device="cpu")
     tw = with_weights(tp, torch.tensor(w))
     assert tw.dynamic and not tp.dynamic
     for name in ("Hred_d", "mG11_d", "mG01_d", "mG00_d", "wood_C",
@@ -123,7 +124,8 @@ def test_with_weights_matches_jax(graph):
         jw, jnp.asarray(rhs), jnp.asarray(anchor))
     # The port's reweighted problem and the converted JAX one solve alike.
     jwt = problem_from_numpy({f.name: getattr(jw, f.name)
-                              for f in dataclasses.fields(jw)})
+                              for f in dataclasses.fields(jw)},
+                             device="cpu")
     assert jwt.dynamic
     for p in (tw, jwt):
         out = p.solve_mG00(torch.tensor(rhs), torch.tensor(anchor))

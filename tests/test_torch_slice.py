@@ -63,7 +63,7 @@ def _port(graph, **kw):
     from dpgo_tpu_torch.solvers.mm import MMOptions
 
     return DPGOSolver(_torch_meas(graph), num_nodes=2,
-                      opts=MMOptions(accelerated=True), **kw)
+                      opts=MMOptions(accelerated=True), device="cpu", **kw)
 
 
 @pytest.mark.parametrize("d", [3, 2])
@@ -124,12 +124,13 @@ def test_masked_tnt_lanes_match_full_batch(graph, jax_run):
 
     js, _, jst, _, _ = jax_run
     probs = problem_from_numpy({f.name: getattr(js.probs, f.name)
-                                for f in dataclasses.fields(js.probs)})
+                                for f in dataclasses.fields(js.probs)},
+                               device="cpu")
     st = state_from_numpy({
         name: ({f.name: np.asarray(getattr(v, f.name))
                 for f in dataclasses.fields(v)}
                if dataclasses.is_dataclass(v) else np.asarray(v))
-        for name, v in jst._asdict().items()})
+        for name, v in jst._asdict().items()}, device="cpu")
     th_t, th_R = probs.proximal(st.Z, (st.Df_t, st.Df_R))
     t_c = probs.recover_translations(th_R, st.g_t, st.Z.t)
     anchor = (st.Z.t, st.Z.R, st.fobj)
