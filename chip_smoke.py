@@ -5,12 +5,12 @@
 
 Builds the port's two CUDA kernels from `dpgo_tpu_torch/csrc/` (nvcc, one
 process per source, at first use), holds each against its plain PyTorch
-version at the shapes of the paths below, then drives three paths once each
-through the public entry points, AMM-PGO# with the refined TNT preset, 16
-nodes, float32, 150 iterations:
+version at the shapes of the paths below (K2 in float32 and float64), then
+drives these paths once each through the public entry points, the refined
+TNT preset, 16 nodes, float32, 150 iterations:
 
 1. rim: `artifacts/rim_synth.g2o` (10,240 poses, 640 per node, d = 3),
-   trivial loss. Kernels K1 (D = 3) and K2.
+   AMM-PGO#, trivial loss. Kernels K1 (D = 3) and K2.
 2. manhattan: a 2-D Manhattan-world graph of the city10000 family built
    from SEED + 1 (10,000 poses, 625 per node, d = 2), written as EDGE_SE2
    text and read back through the port's g2o reader. Kernel K1 (D = 2); the
@@ -18,8 +18,23 @@ nodes, float32, 150 iterations:
 3. robust: rim_synth with every tenth inter-node edge replaced by an
    outlier (drawn from SEED + 2), Huber loss (loss_reg 0.25) with dynamic
    rescale. K1 (D = 3, on the reweighted Hred) and K2.
+4. star: rim_synth through DPGOStarSolver (AMM-PGO*) from the centralized
+   chordal start of rim; host syncs and master fallbacks per step, final
+   2f beside rim's. K1 and K2.
+5. mm_dchordal: rim_synth through MM-PGO (accelerated=False) started from
+   initialize(dist_init=True), the CLI's default DChordal start. DChordal
+   is timed with the kernels and with their plain versions, in float64
+   (held to each other within 1e-4 in 2f) and in float32 (the path's
+   start, held to SO(3)); its 2f is reported beside 1.5 x the centralized
+   chordal 2f + 1. MM's 2f never rises by more than 1e-5 of itself. K1
+   and K2.
+6. the CLI (`dpgo_tpu_torch.cli.main`) in a temporary directory: AMM-PGO*
+   with the DChordal start in float32 on the manhattan graph's .g2o file
+   (30 iterations; K1 at D = 2), and the float64 default on
+   `artifacts/grid3D_synth.g2o` with 4 nodes (20 iterations; K2's float64
+   instantiation).
 
-Each path is checked against the same path run with the kernels' plain
+Paths 1-5 are checked against the same path run with the kernels' plain
 versions on the card, and against the exact global objective.
 
 Each K1 phase holds the kernel against its plain version at every cluster
@@ -58,9 +73,11 @@ SEED = 0
 DATASET = os.path.join("artifacts", "rim_synth.g2o")
 LOSS_REG = 0.25  # the CLI's default robust-loss parameter
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
-# bandwidth and float32 outside the tensor cores (the kernels' type).
+# bandwidth, float32 and float64 outside the tensor cores (the kernels'
+# types).
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+F64_FLOP_S = 34e12
 # K2's float operations per matrix, counted from csrc/polar_so3.cu: the
 # normalization and 9 Newton steps (a determinant, an adjugate, two norms
 # and the scaled update, ~120 each); a det < 0 matrix adds ~200 for its flip.
@@ -124,10 +141,11 @@ def graph_ms(launch, reps: int) -> float:
     return cuda_ms(graph.replay, 3) / reps
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_s: float = F32_FLOP_S):
     """The least milliseconds the card could take: bytes over the HBM rate
-    or operations over the float32 rate, whichever is larger, and which."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    or operations over the peak rate of their type (float32 unless named),
+    whichever is larger, and which."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -200,6 +218,60 @@ def phase_polar_so3(rng, dev, card):
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none; bound "
           f"{bnd:.5f} ms ({by}: {2 * At.numel() * 4} bytes), device time "
           f"at {bnd / dev_ms:.3f} of the bound")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def phase_polar_so3_f64(rng, dev, card):
+    """K2's float64 instantiation (the CLI's default type) against its plain
+    version on 10,240 matrices built as in phase_polar_so3, every fifth
+    with det < 0, plus one zero matrix: within 1e-12, then timed."""
+    import numpy as np
+    import torch
+
+    from dpgo_tpu_torch.ops import _build
+    from dpgo_tpu_torch.ops.polar_so3_cuda import polar_so3_cuda
+    from dpgo_tpu_torch.ops.so3 import polar_so3
+    from dpgo_tpu_torch.synthetic import random_rotations
+
+    n = NUM_NODES * 640
+    sigma = np.array([1.0, 2.0, 3.5]) + rng.uniform(0, 0.5, size=(n, 3))
+    sigma *= 10.0 ** rng.uniform(-2, 2, size=(n, 1))
+    A = random_rotations(rng, n) @ (
+        sigma[:, :, None] * random_rotations(rng, n).transpose(0, 2, 1))
+    A[::5] *= -1.0
+    A = np.concatenate([A, np.zeros((1, 3, 3))])
+    At = torch.tensor(A, dtype=torch.float64, device=dev)
+    R = polar_so3_cuda(At)
+    Rp = polar_so3(At)
+    torch.cuda.synchronize()
+    err = float((R - Rp).abs().max())
+    eye = torch.eye(3, dtype=torch.float64, device=dev)
+    orth = float(torch.linalg.matrix_norm(R.transpose(-1, -2) @ R - eye)
+                 .max())
+    det_err = float((torch.linalg.det(R) - 1.0).abs().max())
+    print(f"K2 polar_so3_f64: {A.shape[0]} float64 matrices "
+          f"({int((np.linalg.det(A) < 0).sum())} with det < 0, 1 zero): max "
+          f"|kernel - plain| = {err:.3e}, max |det - 1| = {det_err:.3e}, "
+          f"max |R^T R - I|_F = {orth:.3e}")
+    check(err <= 1e-12, f"K2 f64 max abs error {err} > 1e-12")
+    check(orth <= 1e-12 and det_err <= 1e-12, "K2 f64 output not in SO(3)")
+    check(bool(torch.equal(R[-1], eye)), "K2 f64 zero matrix did not map "
+          "to the identity")
+
+    At = At[:n].contiguous()
+    ms = cuda_ms(lambda: polar_so3_cuda(At), 200)
+    lib, out = _build.load(), torch.empty_like(At)
+    dev_ms = graph_ms(lambda stream: _build.check(lib.dpgo_polar_so3_f64(
+        At.data_ptr(), out.data_ptr(), n, stream), "polar_so3"), 200)
+    plain_ms = cuda_ms(lambda: polar_so3(At), 50)
+    n_neg = int((np.linalg.det(A[:n]) < 0).sum())
+    nbytes = 2 * At.numel() * 8
+    bnd, by = bound(nbytes, n * K2_FLOPS + n_neg * K2_FLIP_FLOPS, F64_FLOP_S)
+    print(f"K2 f64 time at [{n}, 3, 3] [{card}]: device {dev_ms:.4f} ms, "
+          f"call {ms:.4f} ms, plain {plain_ms:.4f} ms, library none; bound "
+          f"{bnd:.5f} ms ({by}: {nbytes} bytes), device time at "
+          f"{bnd / dev_ms:.3f} of the bound")
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=bnd, bound_by=by, library_ms=None)
 
@@ -402,6 +474,37 @@ def profile_path(name, solver, init, card):
     return prof
 
 
+def profile_dchordal(meas, dev, card):
+    """One DChordal run (kernels on) under torch.profiler: wall seconds,
+    device seconds (all CUDA activity), K2's device ms and launches, and
+    the largest kernels; printed and returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpgo_tpu_torch.chordal import distributed_chordal_init
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        distributed_chordal_init(meas, NUM_NODES, dtype=torch.float32,
+                                 device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kt = kernel_times(prof)
+    dev_s = sum(ms for ms, _ in kt.values()) / 1e3
+    k2 = [v for key, v in kt.items() if "polar_so3_kernel" in key]
+    top = sorted(kt.items(), key=lambda kv: -kv[1][0])[:6]
+    out = {"wall_s": wall, "device_s": dev_s, "busy_share": dev_s / wall,
+           "k2_ms": sum(ms for ms, _ in k2), "k2_launches": sum(n for _, n
+                                                                in k2),
+           "top": [[key[:80], ms] for key, (ms, _) in top]}
+    print(f"DChordal profile [{card}]: wall {wall:.2f} s (profiled), device "
+          f"{dev_s:.3f} s (busy share {dev_s / wall:.3f}); K2 "
+          f"{out['k2_ms']:.3f} ms over {out['k2_launches']} launches; top: "
+          + "; ".join(f"{n} {ms:.1f} ms" for n, ms in out["top"]))
+    return out
+
+
 def run_slice(solver, init, label, steps):
     """initialize + `steps` steps with history, then a second, timed run of
     `steps` steps from the same start. Returns (2f init, 2f history, 2f
@@ -434,33 +537,57 @@ def run_slice(solver, init, label, steps):
 
 
 def kernel_counts():
+    import torch
+
     from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
-    return {"polar_so3": polar_so3_cuda.Launches.count,
+    by_dtype = polar_so3_cuda.Launches.by_dtype
+    return {"polar_so3": by_dtype[torch.float32],
+            "polar_so3_f64": by_dtype[torch.float64],
             "stpcg": stpcg_cuda.Launches.by_d[3],
             "stpcg_d2": stpcg_cuda.Launches.by_d[2]}
 
 
-def run_path(name, solver, init, needs, card, steps=ITERS):
-    """Drive one path through the kernels (launch counts reset just before
-    and read just after), then through the plain versions on the same
-    problems; check decrease, the global oracle, kernel-vs-plain agreement
-    and that every kernel in `needs` was launched. Returns (summary dict,
-    launches, final state of the kernel run)."""
+def reset_counts():
+    from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
+    polar_so3_cuda.Launches.reset()
+    stpcg_cuda.Launches.reset()
+
+
+def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
+             monotone=False):
+    """Drive one path through the kernels (launch counts reset just before,
+    unless the caller did so before its own part of the path, and read just
+    after), then through the plain versions on the same problems; check
+    decrease, the global oracle, kernel-vs-plain agreement and that every
+    kernel in `needs` was launched; with `monotone`, that 2f never rose by
+    more than 1e-5 of itself from one step to the next. Returns (summary
+    dict, launches, final state of the kernel run)."""
+    import numpy as np
     import torch
 
-    from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
     from dpgo_tpu_torch.utils import HostSyncs
 
     check(solver.fused_stpcg_engaged(), f"{name}: fused_stpcg_engaged() is "
           "False")
-    polar_so3_cuda.Launches.count = 0
-    stpcg_cuda.Launches.reset()
+    fallbacks = getattr(solver, "fallbacks", None)
+    if fallbacks is not None:
+        fallbacks.update(dict.fromkeys(fallbacks, 0))
+    if reset:
+        reset_counts()
     f0, fh, f_exact, its, syncs, st = run_slice(solver, init, name, steps)
     launches = kernel_counts()
     print(f"{name} with kernels [{card}]: 2f init {f0:.6f}, 2f at {steps} "
           f"{fh[-1]:.6f} (exact oracle {f_exact:.6f}), {its:.2f} it/s, "
           f"{syncs:.2f} host syncs/step, launches {launches} over two runs "
           f"of {steps} steps")
+    if fallbacks is not None:
+        print(f"{name}: master fallbacks over two runs of {steps} steps "
+              f"{fallbacks}")
+    rise = float(np.max(np.diff(fh) / np.abs(fh[1:])))
+    if monotone:
+        print(f"{name}: largest 2f rise from one step to the next "
+              f"{rise:.3e} of 2f")
+        check(rise <= 1e-5, f"{name}: 2f rose by {rise} > 1e-5 of itself")
     for kern in needs:
         check(launches[kern] > 0, f"{name}: kernel {kern} was not launched: "
               f"{launches}")
@@ -473,6 +600,8 @@ def run_path(name, solver, init, needs, card, steps=ITERS):
     twin = copy.copy(solver)
     twin.probs = dataclasses.replace(solver.probs, kernels=False)
     twin.syncs = HostSyncs()
+    if fallbacks is not None:
+        twin.fallbacks = dict.fromkeys(fallbacks, 0)
     before = kernel_counts()
     _, fhp, _, its_p, syncs_p, _ = run_slice(twin, init, f"{name} plain",
                                              steps)
@@ -505,7 +634,10 @@ def run_path(name, solver, init, needs, card, steps=ITERS):
                "f2_step1_vs_plain_of_decrease": float(dec[0]),
                "host_syncs_per_step": syncs,
                "plain_host_syncs_per_step": syncs_p, "launches": launches,
-               "card": card}
+               "largest_rise_of_2f": rise, "card": card}
+    if fallbacks is not None:
+        summary["fallbacks_per_step"] = {k: v / (2 * steps)
+                                         for k, v in fallbacks.items()}
     return summary, launches, st
 
 
@@ -520,11 +652,14 @@ def main() -> int:
     import numpy as np
 
     import dpgo_tpu_torch  # noqa: F401  (sets true-f32 matmuls)
-    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch import cli
+    from dpgo_tpu_torch.chordal import distributed_chordal_init
+    from dpgo_tpu_torch.driver import DPGOSolver, DPGOStarSolver
     from dpgo_tpu_torch.io.g2o import read_g2o_file, write_g2o_file
     from dpgo_tpu_torch.losses import Loss, loss_weight
-    from dpgo_tpu_torch.objective import edge_sqnorms
+    from dpgo_tpu_torch.objective import EdgeData, edge_sqnorms, evaluate_f
     from dpgo_tpu_torch.ops import _build
+    from dpgo_tpu_torch.ops.eigen import lambda_max_lanczos
     from dpgo_tpu_torch.sesync import (chordal_initialization,
                                        recover_translations_global)
     from dpgo_tpu_torch.solvers.mm import MMOptions
@@ -545,17 +680,22 @@ def main() -> int:
     print(f"kernel build and load: {time.perf_counter() - t0:.2f} s")
 
     k2 = phase_polar_so3(np.random.default_rng(SEED), dev, card)
+    k2_f64 = phase_polar_so3_f64(np.random.default_rng(SEED + 4), dev, card)
+    # The manhattan graph's .g2o file and the CLI's working directory.
+    work = tempfile.TemporaryDirectory()
 
-    def make_solver(meas, label, **kw):
+    def make_solver(meas, label, cls=DPGOSolver, init=None, **kw):
         t0 = time.perf_counter()
-        solver = DPGOSolver(meas, num_nodes=NUM_NODES, dtype=torch.float32,
-                            device=dev, **kw)
-        R0 = chordal_initialization(meas)
-        init = (recover_translations_global(meas, R0), R0)
+        solver = cls(meas, num_nodes=NUM_NODES, dtype=torch.float32,
+                     device=dev, **kw)
         torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        if init is None:
+            R0 = chordal_initialization(meas)
+            init = (recover_translations_global(meas, R0), R0)
         print(f"{label}: {meas.num_poses} poses, {len(meas)} edges, "
               f"{NUM_NODES} nodes x {solver.mg.n0_max} poses, d = {meas.d}, "
-              f"float32; problem build + chordal init "
+              f"float32; problem build {t_build:.1f} s, with chordal init "
               f"{time.perf_counter() - t0:.1f} s")
         return solver, init
 
@@ -566,20 +706,29 @@ def main() -> int:
     rim = read_g2o_file(os.path.join(root, DATASET))
     solver, init = make_solver(rim, f"rim: {DATASET}",
                                opts=MMOptions(accelerated=True))
+    # The block-Jacobi preconditioner's share of the build: one Lanczos
+    # lambda_max per node on mG11, as build_node_problems runs them.
+    mG11 = solver.probs.mG11_d.double().cpu().numpy()
+    t0 = time.perf_counter()
+    for a in range(NUM_NODES):
+        lambda_max_lanczos(mG11[a], seed=a)
+    print(f"rim: precon_inv's {NUM_NODES} Lanczos runs on mG11 (host) "
+          f"{time.perf_counter() - t0:.2f} s of the problem build")
+    del mG11
     st, _ = solver.run_steps(solver.initialize(*init), 0, 3)
     k1["rim"] = phase_stpcg("rim", solver.probs, st, tp, card)
     paths["rim"], launches["rim"], _ = run_path(
         "rim", solver, init, ("polar_so3", "stpcg"), card)
     to_profile = [("rim", solver, init)]
+    rim_init = init
     del st
 
     # Path 2: 2-D Manhattan world through the EDGE_SE2 reader (K1 at D = 2).
     meas2, t_true, R_true = manhattan_world(
         np.random.default_rng(SEED + 1))
-    with tempfile.TemporaryDirectory() as tmp:
-        g2o = os.path.join(tmp, "manhattan.g2o")
-        write_g2o_file(g2o, t_true, R_true, meas2)
-        meas2 = read_g2o_file(g2o)
+    g2o = os.path.join(work.name, "manhattan.g2o")
+    write_g2o_file(g2o, t_true, R_true, meas2)
+    meas2 = read_g2o_file(g2o)
     check(meas2.d == 2, "the EDGE_SE2 file did not read back as d = 2")
     solver, init = make_solver(meas2, "manhattan: 2-D Manhattan world "
                                f"(seed {SEED + 1})",
@@ -642,10 +791,161 @@ def main() -> int:
     to_profile.append(("robust", solver, init))
     del st
 
+    # Path 4: AMM-PGO* on rim_synth from rim's centralized chordal start.
+    solver, _ = make_solver(rim, f"star: {DATASET}, DPGOStarSolver "
+                            "(AMM-PGO*)", cls=DPGOStarSolver, init=rim_init,
+                            opts=MMOptions(accelerated=True))
+    paths["star"], launches["star"], _ = run_path(
+        "star", solver, rim_init, ("polar_so3", "stpcg"), card)
+    ratio = paths["star"]["f2_final"] / paths["rim"]["f2_final"]
+    print(f"star: final 2f {paths['star']['f2_final']:.6f} against rim's "
+          f"AMM-PGO# {paths['rim']['f2_final']:.6f} (ratio {ratio:.6f}; "
+          "the two coincide only while no restart triggers)")
+    paths["star"]["f2_final_over_rim"] = ratio
+    to_profile.append(("star", solver, rim_init))
+
+    # Path 5: MM-PGO on rim_synth from the CLI's default start, DChordal
+    # (K2 in its stages 0 and 2 and in the proximal steps, K1 and K2 in the
+    # refinement). First DChordal in float64 (the CLI's default type) with
+    # K2 and with its plain version, held to each other; these comparison
+    # runs are not counted.
+    solver, _ = make_solver(rim, f"mm_dchordal: {DATASET}, MM-PGO from "
+                            "DChordal", init=rim_init,
+                            opts=MMOptions(accelerated=False))
+    edges64 = EdgeData.from_measurements(rim, dtype=torch.float64, device=dev)
+
+    def f2(t, R):
+        def f(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.float64,
+                                   device=dev)
+        return 2.0 * float(evaluate_f(edges64, f(t), f(R)))
+
+    def dchordal(dtype, kernels):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t, R = distributed_chordal_init(rim, NUM_NODES, dtype=dtype,
+                                        device=dev, kernels=kernels)
+        torch.cuda.synchronize()
+        return t, R, time.perf_counter() - t0
+
+    def off_so3(R):
+        R = np.asarray(R, np.float64)
+        return float(np.abs(np.einsum("nki,nkj->nij", R, R)
+                            - np.eye(3)).max())
+
+    f_cent = f2(*rim_init)
+    t64, R64, dc64_s = dchordal(torch.float64, True)
+    t64p, R64p, dc64p_s = dchordal(torch.float64, False)
+    f_64, f_64p = f2(t64, R64), f2(t64p, R64p)
+    rel64 = abs(f_64 - f_64p) / abs(f_64p)
+    print(f"mm_dchordal: DChordal float64 [{card}] {dc64_s:.2f} s with K2, "
+          f"{dc64p_s:.2f} s plain; 2f {f_64:.6f} (plain {f_64p:.6f}, "
+          f"relative difference {rel64:.3e}), {f_64 / f_cent:.4f} x the "
+          f"centralized chordal 2f {f_cent:.6f}; max |R^T R - I| "
+          f"{off_so3(R64):.3e}")
+    check(rel64 <= 1e-4, f"mm_dchordal: float64 DChordal with K2 and plain "
+          f"disagree in 2f by {rel64} > 1e-4")
+    check(off_so3(R64) <= 1e-12, "mm_dchordal: float64 DChordal rotation "
+          "off SO(3)")
+
+    # The path: the solver's own (float32) DChordal through the front door.
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = solver.initialize(dist_init=True)
+    torch.cuda.synchronize()
+    dc_s = time.perf_counter() - t0
+    dc_launches = kernel_counts()
+    t_dc, R_dc = (x.double().cpu().numpy() for x in solver.gather_global(st))
+    del st
+    t_pl, R_pl, dc_plain_s = dchordal(torch.float32, False)
+    check(kernel_counts() == dc_launches, "mm_dchordal: the plain DChordal "
+          "launched a kernel")
+    check(dc_launches["polar_so3"] > 0, "mm_dchordal: DChordal did not "
+          f"launch K2: {dc_launches}")
+    f_dc, f_pl = f2(t_dc, R_dc), f2(t_pl, R_pl)
+    dc_rel = abs(f_dc - f_pl) / abs(f_pl)
+    orth = off_so3(R_dc)
+    print(f"mm_dchordal: DChordal float32 [{card}] {dc_s:.2f} s with K2 "
+          f"(initialize(dist_init=True), launches {dc_launches}), "
+          f"{dc_plain_s:.2f} s plain; 2f {f_dc:.6f} (plain {f_pl:.6f}, "
+          f"relative difference {dc_rel:.3e}), {f_dc / f_cent:.4f} x the "
+          f"centralized chordal 2f (plain {f_pl / f_cent:.4f}); max "
+          f"|R^T R - I| {orth:.3e}")
+    check(orth <= 1e-4, f"mm_dchordal: DChordal rotation off SO(3) by {orth}")
+    # Reported, not held: on rim the reference's DChordal (the stage
+    # lengths of the reference driver) lands above 1.5 x the centralized
+    # chordal 2f + 1 even in float64 (PERF.md, section 6), and the float32
+    # stage solves are ill-conditioned enough that K2 and its plain version
+    # (1e-7 apart per projection) end 1e-1 apart in 2f.
+    print(f"mm_dchordal: DChordal within 1.5 x chordal + 1: float32 "
+          f"{f_dc <= 1.5 * f_cent + 1.0}, float64 "
+          f"{f_64 <= 1.5 * f_cent + 1.0}")
+    dc_init = (t_dc, R_dc)
+    paths["mm_dchordal"], launches["mm_dchordal"], _ = run_path(
+        "mm_dchordal", solver, dc_init, ("polar_so3", "stpcg"), card,
+        reset=False, monotone=True)
+    paths["mm_dchordal"].update(
+        dchordal_s=dc_s, dchordal_plain_s=dc_plain_s, dchordal_f2=f_dc,
+        dchordal_plain_f2=f_pl, chordal_f2=f_cent,
+        dchordal_launches=dc_launches, dchordal_f64_s=dc64_s,
+        dchordal_f64_plain_s=dc64p_s, dchordal_f64_f2=f_64,
+        dchordal_f64_plain_f2=f_64p)
+    to_profile.append(("mm_dchordal", solver, dc_init))
+
+    # Path 6: the CLI, in a temporary working directory.
+    here = os.getcwd()
+    try:
+        os.chdir(work.name)
+        for name, argv, rows_want, needs in (
+                ("cli_star", ["--dataset", g2o, "--num_nodes",
+                              str(NUM_NODES), "--solver", "star",
+                              "--dist_init", "true", "--f32", "--iters",
+                              "30", "--record_every", "10"], 4,
+                 ("stpcg_d2",)),
+                ("cli_f64", ["--dataset", os.path.join(
+                    root, "artifacts", "grid3D_synth.g2o"), "--num_nodes",
+                             "4", "--dist_init", "false", "--iters", "20"],
+                 21, ("polar_so3_f64",))):
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            secs = time.perf_counter() - t0
+            launches[name] = kernel_counts()
+            nodes = argv[argv.index("--num_nodes") + 1]
+            rows = np.loadtxt(f"results_chordal_{nodes}_amm.txt", ndmin=2)
+            meas_c = read_g2o_file(argv[1])
+            est = np.loadtxt("estimates_trivial.txt", ndmin=2)
+            print(f"{name} [{card}]: {secs:.2f} s, {rows.shape[0]} result "
+                  f"rows, 2f {rows[0, 2]:.6f} -> {rows[-1, 2]:.6f}, "
+                  f"launches {launches[name]}")
+            check(rows.shape == (rows_want, 4) and np.isfinite(rows).all(),
+                  f"{name}: result rows {rows.shape}")
+            check(est.shape == (meas_c.num_poses * (1 + meas_c.d), meas_c.d),
+                  f"{name}: estimates shape {est.shape}")
+            for kern in needs:
+                check(launches[name][kern] > 0, f"{name}: kernel {kern} was "
+                      f"not launched: {launches[name]}")
+            if name == "cli_star":
+                check(bool(np.all(np.diff(rows[:, 2]) <= 0)),
+                      f"{name}: 2f rose: {rows[:, 2]}")
+            else:
+                check(launches[name]["polar_so3"] == 0,
+                      f"{name}: the float64 run launched float32 K2")
+                check(rows[-1, 2] < rows[0, 2], f"{name}: 2f did not "
+                      "decrease")
+            paths[name] = {"seconds": secs, "rows": rows.tolist(),
+                           "launches": launches[name], "card": card}
+    finally:
+        os.chdir(here)
+    work.cleanup()
+
     # torch.profiler runs only now, after every timed run.
     for name, solver, init in to_profile:
         paths[name]["profile"] = profile_path(name, solver, init, card)
     del to_profile, solver
+    paths["mm_dchordal"]["dchordal_profile"] = profile_dchordal(rim, dev,
+                                                                card)
 
     def total(kern):
         return sum(c[kern] for c in launches.values())
@@ -669,6 +969,8 @@ def main() -> int:
     kernels = [
         entry("polar_so3", "dpgo_tpu_torch/csrc/polar_so3.cu",
               "dpgo_tpu/ops/pallas_so3.py:70", k2),
+        entry("polar_so3_f64", "dpgo_tpu_torch/csrc/polar_so3.cu",
+              "dpgo_tpu/ops/pallas_so3.py:70", k2_f64),
         entry("stpcg", "dpgo_tpu_torch/csrc/stpcg.cu",
               "dpgo_tpu/ops/pallas_stpcg.py:140", k1_d3),
         entry("stpcg_d2", "dpgo_tpu_torch/csrc/stpcg.cu",

@@ -1,14 +1,14 @@
 """Load the JAX package's problem and solver state into this port.
 
-`problem_from_numpy` and `state_from_numpy` take the leaves of a
-dpgo_tpu `NodeProblem` / `MMState` as numpy arrays keyed by field name (the
-node-stacked pytrees converted with `np.asarray`) and build the port's
-counterparts on `device` (named by the caller: the tests carry the JAX
-package's state to the CPU), so both packages can start from one state.
-Dense problems at d = 2 and 3 are taken, reweighted (dynamic) ones
-included. Fields the port
-does not carry (fused-kernel panels, the one-hot scatter, the block-Jacobi
-preconditioner, segment path, Anderson history) are ignored.
+`problem_from_numpy`, `state_from_numpy` and `star_state_from_numpy` take
+the leaves of a dpgo_tpu `NodeProblem` / `MMState` / `StarState` as numpy
+arrays keyed by field name (the node-stacked pytrees converted with
+`np.asarray`) and build the port's counterparts on `device` (named by the
+caller: the tests carry the JAX package's state to the CPU), so both
+packages can start from one state. Dense problems at d = 2 and 3 are taken,
+reweighted (dynamic) ones included, with the block-Jacobi preconditioner
+`precon_inv`. Fields the port does not carry (fused-kernel panels, the
+one-hot scatter, segment path, Anderson history) are ignored.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from dpgo_tpu_torch.losses import Loss
 from dpgo_tpu_torch.problem import NodeProblem, NodeState, make_problem
 from dpgo_tpu_torch.solvers.mm import MMState
+from dpgo_tpu_torch.solvers.star import StarState
 
 _STATE_FIELDS = ("g_t", "g_R", "f", "fobj", "Df_t", "Df_R", "g_t_prev",
                  "g_R_prev", "Df_t_prev", "Df_R_prev", "fobj_prev",
@@ -26,6 +27,9 @@ _STATE_FIELDS = ("g_t", "g_R", "f", "fobj", "Df_t", "Df_R", "g_t_prev",
                  "z_rt", "z_rR", "z_us", "z_Es", "scale_w")
 _STATE_INT_FIELDS = ("hits0", "hits1", "osc_buf", "num_osc",
                      "rescale_count")
+_STAR_FIELDS = ("g_t", "g_R", "f", "fobj", "Df_t", "Df_R", "g_t_prev",
+                "g_R_prev", "Df_t_prev", "Df_R_prev", "gradFnorm", "s",
+                "s_next", "gamma", "F", "z_rt", "z_rR", "z_us", "z_Es")
 
 
 def problem_from_numpy(arrays: dict, device,
@@ -64,3 +68,14 @@ def state_from_numpy(arrays: dict, device,
                for name in _STATE_INT_FIELDS})
     return MMState(Z=_node_state(arrays["Z"], device, dtype),
                    Z_prev=_node_state(arrays["Z_prev"], device, dtype), **kw)
+
+
+def star_state_from_numpy(arrays: dict, device,
+                          dtype=torch.float64) -> StarState:
+    """Port StarState from the JAX StarState's fields; Z and Z_prev are
+    dicts of the NodeState fields t, R, th, Rh."""
+    kw = {name: torch.as_tensor(np.array(arrays[name]), dtype=dtype,
+                                device=device) for name in _STAR_FIELDS}
+    return StarState(Z=_node_state(arrays["Z"], device, dtype),
+                     Z_prev=_node_state(arrays["Z_prev"], device, dtype),
+                     **kw)

@@ -1,5 +1,6 @@
 """End-to-end distributed PGO driver on one device (torch port of
-dpgo_tpu/driver.py, DPGOSolver with the AMM-PGO# scheme).
+dpgo_tpu/driver.py): DPGOSolver runs MM-PGO and AMM-PGO#, DPGOStarSolver
+AMM-PGO*.
 
 Single-process simulation: the node axis is a batch dimension;
 communication is a gather on the stacked node states. One solver iteration
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dpgo_tpu_torch.chordal import distributed_chordal_init
 from dpgo_tpu_torch.graph import build_multigraph
 from dpgo_tpu_torch.io.g2o import Measurements
 from dpgo_tpu_torch.losses import Loss
@@ -20,6 +22,7 @@ from dpgo_tpu_torch.problem import NodeState, build_node_problems
 from dpgo_tpu_torch.sesync import (chordal_initialization,
                                    recover_translations_global)
 from dpgo_tpu_torch.solvers import mm as mm_mod
+from dpgo_tpu_torch.solvers import star as star_mod
 from dpgo_tpu_torch.solvers.mm import MMOptions, MMState, init_state
 from dpgo_tpu_torch.utils import HostSyncs, resolve_device
 
@@ -29,18 +32,16 @@ def communicate(st: MMState, halo_owner, halo_lpose, halo_dc=None) -> MMState:
 
     `halo_dc` [N, n1_max, d] re-expresses the owner's locally-centered
     translations in the reader's frame (local gauge centering)."""
-    th = st.Z.t[halo_owner, halo_lpose]
-    if halo_dc is not None:
-        th = th + halo_dc
-    Rh = st.Z.R[halo_owner, halo_lpose]
-    return st.replace(Z=NodeState(t=st.Z.t, R=st.Z.R, th=th, Rh=Rh))
+    return st.replace(Z=communicate_star(st.Z, halo_owner, halo_lpose,
+                                         halo_dc))
 
 
 class DPGOSolver:
     """Distributed PGO on one device: batched node axis, eager step.
 
-    Ported scope: AMM-PGO#, dense per-node operators, d = 2 and 3, every
-    loss kernel with static or dynamic rescale, centralized chordal
+    Ported scope: MM-PGO and AMM-PGO#, dense per-node operators, d = 2 and
+    3, every loss kernel with static or dynamic rescale, the three STPCG
+    preconditioners, centralized chordal or distributed (DChordal)
     initialization. Runs on the CUDA card unless `device` names another
     (`device="cpu"`). A problem copy with
     `dataclasses.replace(solver.probs, kernels=False)` runs the plain torch
@@ -104,6 +105,10 @@ class DPGOSolver:
         for a in range(mg.num_nodes):
             s, n0 = int(mg.start[a]), int(mg.n0[a])
             c[a] = np.asarray(t[s:s + n0], np.float64).mean(axis=0)
+        self.set_gauge(c)
+
+    def set_gauge(self, c: np.ndarray) -> None:
+        """Install explicit gauge centroids (checkpoint resume path)."""
         # Round to the working precision so host/device adds are exact.
         np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
         c = np.asarray(c, np_dtype).astype(np.float64)
@@ -145,10 +150,15 @@ class DPGOSolver:
         R = st.Z.R[self.node_of, self.local_of]
         return t, R
 
-    def initialize(self, t: np.ndarray | None = None,
-                   R: np.ndarray | None = None) -> MMState:
-        """Centralized chordal initialization (host numpy/scipy), then the
-        first update."""
+    def _start(self, t, R, dist_init: bool) -> NodeState:
+        """The initial node states: (t, R) as given, else centralized
+        chordal (host numpy/scipy) or, with dist_init, the distributed
+        DChordal pipeline on this solver's device, type and kernel
+        setting."""
+        if R is None and dist_init:
+            t, R = distributed_chordal_init(
+                self.meas, self.num_nodes, dtype=self.dtype,
+                device=self.device, kernels=self.probs.kernels)
         if R is None:
             R = chordal_initialization(self.meas)
         if t is None:
@@ -157,7 +167,14 @@ class DPGOSolver:
         # which matters in f32).
         t = t - np.asarray(t).mean(axis=0, keepdims=True)
         self._set_gauge(t)
-        st = init_state(self.probs, self.pack_global(t, R), self.opts)
+        return self.pack_global(t, R)
+
+    def initialize(self, t: np.ndarray | None = None,
+                   R: np.ndarray | None = None,
+                   dist_init: bool = False) -> MMState:
+        """Initialization (centralized chordal by default, DChordal with
+        dist_init=True), then the first update."""
+        st = init_state(self.probs, self._start(t, R, dist_init), self.opts)
         st = communicate(st, self.halo_owner, self.halo_lpose, self.halo_dc)
         st = st.replace(Z_prev=st.Z)
         return self._update(st, 0, first=True)
@@ -182,8 +199,10 @@ class DPGOSolver:
         return mm_mod.reweighted_problems(self.probs, st, self.opts)
 
     def _step(self, st: MMState, k: int) -> MMState:
-        st = mm_mod.iterate_amm(self.problems(st), st, self.opts, k,
-                                self.syncs)
+        iterate = (mm_mod.iterate_amm
+                   if mm_mod.resolve_scheme(self.opts) == "amm"
+                   else mm_mod.iterate_mm)
+        st = iterate(self.problems(st), st, self.opts, k, self.syncs)
         st = communicate(st, self.halo_owner, self.halo_lpose, self.halo_dc)
         # Z_prev (stamped inside iterate) is the previous anchor including
         # the halo of the previous round's communicate.
@@ -222,9 +241,97 @@ class DPGOSolver:
     def fused_stpcg_engaged(self) -> bool:
         """True iff the TNT refinement's trust-region subproblem runs in the
         fused single-launch STPCG (kernel K1): the Hopper gate (dense path,
-        d = 2 or 3, float32, CUDA device) and refinement enabled. Mirrors
-        mm._make_tnt_model_dense."""
+        d = 2 or 3, float32, CUDA device), the dense preconditioner and
+        refinement enabled. Mirrors mm._make_tnt_model_dense."""
         tnt = self.opts.tnt
         return (self.probs.fused_stpcg_supported()
+                and mm_mod.resolve_preconditioner(self.probs,
+                                                  self.opts) == "dense"
                 and tnt.max_iterations > 0
                 and tnt.max_iterations_accepted > 0)
+
+    def node_stats(self, st: MMState) -> dict:
+        """Per-node observability snapshot (the reference's DPGOResult
+        per-iteration series)."""
+        def a(x):
+            return x.cpu().numpy()
+
+        return {
+            "fobj": a(st.fobj), "gradFnorm": a(st.gradFnorm), "Gk": a(st.Gk),
+            "Fk0": a(st.Fk0), "Fk1": a(st.Fk1), "gamma": a(st.gamma),
+            "s": a(st.s), "soft_restart_hits": (a(st.hits0), a(st.hits1)),
+            "num_oscillations": a(st.num_osc),
+        }
+
+    def run(self, num_iters: int, t0=None, R0=None, record_every: int = 1,
+            callback=None, log_iterates: bool = False):
+        """Run the solver; returns (state, history) where history rows are
+        (iter, 2 fobj, 2 |grad|) from the exact global oracle.
+
+        `callback(k, state, fobj2x, grad2x)` is invoked at every recorded
+        iteration; returning True stops the run early. `log_iterates=True`
+        also keeps the global (t, R) at every recorded iteration and returns
+        (state, history, iterates), iterates a list of numpy pairs."""
+        st = self.initialize(t0, R0)
+        history, iterates = [], []
+
+        def record(st, k):
+            f, g = (float(x) for x in self._metrics(st))
+            history.append((k, f, g))
+            if log_iterates:
+                t, R = self.gather_global(st)
+                iterates.append((t.cpu().numpy(), R.cpu().numpy()))
+            return callback is not None and callback(k, st, f, g)
+
+        stopped = record(st, 0)
+        done = 0
+        while not stopped and done < num_iters:
+            chunk = min(record_every, num_iters - done)
+            st, done = self.run_steps(st, done, chunk)
+            stopped = record(st, done)
+        if log_iterates:
+            return st, np.asarray(history), iterates
+        return st, np.asarray(history)
+
+
+class DPGOStarSolver(DPGOSolver):
+    """AMM-PGO*: per-node accelerated steps with master-gated fallbacks
+    using the exact global objective (reference DPGOStar). Runs on the base
+    problems (no dynamic rescale). `fallbacks` counts the master fallbacks
+    taken, by name (solvers/star.py FALLBACKS)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.fallbacks = dict.fromkeys(star_mod.FALLBACKS, 0)
+
+    def _global_f(self, t_own, R_own):
+        t = t_own[self.node_of, self.local_of]
+        if self._c is not None:
+            c = torch.as_tensor(self._c, dtype=self.dtype, device=self.device)
+            t = t + c[self.node_of]
+        R = R_own[self.node_of, self.local_of]
+        return evaluate_f(self.edges, t, R, self.loss, self.loss_reg)
+
+    def initialize(self, t=None, R=None, dist_init: bool = False):
+        Z = self._start(t, R, dist_init)
+        st = star_mod.init_star_state(self.probs, Z, 0.0)
+        st = st.replace(Z=communicate_star(st.Z, self.halo_owner,
+                                           self.halo_lpose, self.halo_dc))
+        st = st.replace(Z_prev=st.Z, F=self._global_f(st.Z.t, st.Z.R))
+        return star_mod.update_star(self.probs, st, self.opts, first=True)
+
+    def _step(self, st, k: int):
+        st = star_mod.iterate_star(self.probs, st, self.opts, self._global_f,
+                                   k, self.syncs, self.fallbacks)
+        st = st.replace(Z=communicate_star(st.Z, self.halo_owner,
+                                           self.halo_lpose, self.halo_dc))
+        return star_mod.update_star(self.probs, st, self.opts, first=False)
+
+
+def communicate_star(Z: NodeState, halo_owner, halo_lpose,
+                     halo_dc=None) -> NodeState:
+    """communicate() on a bare NodeState (AMM-PGO*)."""
+    th = Z.t[halo_owner, halo_lpose]
+    if halo_dc is not None:
+        th = th + halo_dc
+    return NodeState(t=Z.t, R=Z.R, th=th, Rh=Z.R[halo_owner, halo_lpose])

@@ -35,8 +35,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of each entry point (all return cudaError_t as int).
 _SIGNATURES = {
-    # (A, R, n, stream)
+    # (A, R, n, stream), float32 and float64
     "dpgo_polar_so3": [_P, _P, ctypes.c_longlong, _P],
+    "dpgo_polar_so3_f64": [_P, _P, ctypes.c_longlong, _P],
     # (H, P, g, v0, Q, S, Delta, active, h, Hh, norm, k, N, nd, d, cluster,
     #  max_iters, kappa_fgr, theta, stream)
     "dpgo_stpcg": [_P] * 12 + [_I] * 5 + [_F, _F, _P],

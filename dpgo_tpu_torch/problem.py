@@ -18,10 +18,13 @@ Rotations are stored as true rotation matrices [N, n, d, d]; the dense
 operators act on tall Q-storage (Q = R^T blocks stacked, [N, n d, d]).
 
 Ported here: the dense path at d = 2 and 3, with every loss kernel and
-both rescale modes. Under dynamic rescale `with_weights` rebuilds the
-reweighted problem, including the operator Hred that kernel K1 streams. The
-segment path (blocks above `segment_limit` poses) and the edge-wise operator
-path (n d above `dense_limit`) raise NotImplementedError.
+both rescale modes, the edge-wise R-space operators of the TNT model with
+the block-Jacobi preconditioner (`_make_tnt_model`, DChordal's stage 0) and
+the dense TNT model with any of the three preconditioners. Under dynamic
+rescale `with_weights` rebuilds the reweighted problem, including the
+operator Hred that kernel K1 streams. The segment path (blocks above
+`segment_limit` poses) and the edge-wise operator path (n d above
+`dense_limit`) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import torch
 
 from dpgo_tpu_torch.graph import MultiGraph
 from dpgo_tpu_torch.losses import Loss, loss_value, loss_weight
-from dpgo_tpu_torch.manifold import project_sod
+from dpgo_tpu_torch.manifold import (proj_tangent, project_sod,
+                                     sym_block_diag_product)
 from dpgo_tpu_torch.ops import stpcg_cuda
 from dpgo_tpu_torch.utils import resolve_device
 
@@ -69,7 +73,8 @@ class NodeState:
 
 # Array fields of NodeProblem, in the JAX package's names.
 ARRAY_FIELDS = (
-    "pose_mask", "diagT_inv", "nvec", "W", "Minv_red", "null_V", "mG00_d",
+    "pose_mask", "diagT_inv", "nvec", "W", "Minv_red", "null_V",
+    "precon_inv", "mG00_d",
     "mG01_d", "mG11_d", "Hred_d", "precon_dense",
     "scale_w", "ipose", "imask", "SU", "wood_C",
     "a_i", "a_j", "a_R", "a_t", "a_kap", "a_tau",
@@ -99,6 +104,9 @@ class NodeProblem:
     # mG00^{-1} rhs = Minv_red rhs + null_V (null_V^T rhs) / xi.
     Minv_red: torch.Tensor    # [N, n0, n0]
     null_V: torch.Tensor      # [N, n0, kmax]
+    # Regularized block-Jacobi preconditioner: per-pose inverses of the
+    # mG11 diagonal blocks + (lambda_max(mG11) / precon_cond) I.
+    precon_inv: torch.Tensor  # [N, n0, d, d]
     mG00_d: torch.Tensor      # [N, n0, n0]
     mG01_d: torch.Tensor      # [N, n0, n0 d]
     mG11_d: torch.Tensor      # [N, n0 d, n0 d]
@@ -433,21 +441,25 @@ class NodeProblem:
 
     # ------------------------------------------------- translation solves
 
-    def solve_mG00(self, rhs, t_anchor):
+    def solve_mG00(self, rhs, t_anchor=None):
         """Apply the inverse of the translation block to rhs [N, n0, d]
         through the split inverse. The null response (near-singular on
         components without inter edges, where dividing by xi would amplify
         rounding by 1/xi) equals the gauge of the anchor state whose
-        surrogate produced rhs: -null_V null_V^T t_anchor. Under dynamic
-        rescale the Woodbury core corrects the base inverse for the
-        diagonal weight delta at the poses with inter edges."""
-        c = -(self.null_V.transpose(-1, -2) @ t_anchor)
+        surrogate produced rhs: -null_V null_V^T t_anchor (t_anchor=None
+        divides by xi instead). Under dynamic rescale the Woodbury core
+        corrects the base inverse for the diagonal weight delta at the
+        poses with inter edges."""
+        if t_anchor is None:
+            c = (self.null_V.transpose(-1, -2) @ rhs) / self.xi
+        else:
+            c = -(self.null_V.transpose(-1, -2) @ t_anchor)
         out = self.Minv_red @ rhs + self.null_V @ c
         if self.dynamic:
             out = out - self.SU @ (self.wood_C @ self._g(out, self.ipose))
         return out
 
-    def recover_translations(self, R, g_t, t_anchor):
+    def recover_translations(self, R, g_t, t_anchor=None):
         """t = -mG00^{-1} (g_t + mG01 R) (edge-wise coupling block)."""
         return -self.solve_mG00(g_t + self.mG01_apply(R), t_anchor)
 
@@ -464,6 +476,92 @@ class NodeProblem:
                         * _mv(self._g(M, self.e_self), self.e_t),
                         0.0)
         return out + self._scatter(self._fs, w)
+
+    def mG10_apply(self, v):
+        """R-space result of the transpose coupling block.
+
+        intra e: block R_i += tau (v_i - v_j) t~^T
+        inter self-tail e: block R_self += 2 tau v_self t~^T
+        """
+        dv = self._g(v, self.a_i) - self._g(v, self.a_j)
+        blk = self.a_tau[..., None, None] * dv[..., :, None] \
+            * self.a_t[..., None, :]
+        blk2 = torch.where(
+            self._selm,
+            (2.0 * self._sw(self.e_tau))[..., None, None]
+            * self._g(v, self.e_self)[..., :, None] * self.e_t[..., None, :],
+            0.0)
+        return self._scatter(self._fi, blk) + self._scatter(self._fs, blk2)
+
+    def mG11_apply(self, M):
+        """R-space rotation block of G applied to ambient M [N, n0, d, d].
+
+        intra e: R_i += kappa (M_i R~ - M_j) R~^T + tau (M_i t~) t~^T
+                 R_j += -kappa (M_i R~ - M_j)
+        inter self-tail: R_s += 2 kappa M_s + 2 tau (M_s t~) t~^T
+        inter self-head: R_s += 2 kappa M_s
+        plus xi M.
+        """
+        Mi = self._g(M, self.a_i)
+        rR = Mi @ self.a_R - self._g(M, self.a_j)
+        blk_i = self.a_kap[..., None, None] * (rR @ self.a_R.transpose(-1, -2)) \
+            + self.a_tau[..., None, None] * _mv(Mi, self.a_t)[..., :, None] \
+            * self.a_t[..., None, :]
+        blk_j = -self.a_kap[..., None, None] * rR
+        Ms = self._g(M, self.e_self)
+        tail_extra = torch.where(
+            self._selm,
+            (2.0 * self._sw(self.e_tau))[..., None, None]
+            * _mv(Ms, self.e_t)[..., :, None] * self.e_t[..., None, :],
+            0.0)
+        out = self._scatter(self._fi, blk_i) + self._scatter(self._fj, blk_j)
+        out = out + self._scatter(
+            self._fs, (2.0 * self._sw(self.e_kap))[..., None, None] * Ms
+            + tail_extra)
+        return out + self.xi * M
+
+    def G_apply(self, t, R):
+        """G X as (d/dt, d/dR): the gradient of 1/2 <G X, X>."""
+        rt, rR = self.intra_residuals(t, R)
+        u = torch.sqrt(self.a_tau)[..., None] * rt
+        E = torch.sqrt(self.a_kap)[..., None, None] * rR
+        Gi = u[..., :, None] * self.a_t[..., None, :] \
+            + E @ self.a_R.transpose(-1, -2)
+        Df_t = self._scatter(self._fi, u) - self._scatter(self._fj, u)
+        Df_R = self._scatter(self._fi, Gi) - self._scatter(self._fj, E)
+        # inter: 2 w_bar A_self^T A_self x_self.
+        u_s, E_s = self._self_half(t, R)
+        g2t, g2R = self.apply_A_self_T(
+            2.0 * self.scale_w[..., None] * u_s,
+            2.0 * self.scale_w[..., None, None] * E_s)
+        return Df_t + g2t + self.xi * t, Df_R + g2R + self.xi * R
+
+    # ---------------------------------------------------- TNT building blocks
+
+    def evaluate_G(self, t, R, g, f) -> torch.Tensor:
+        """G^a value 1/2 <G X, X> + <g, X> + f, through the dense operator
+        images (the port's problems are all dense)."""
+        g_t, g_R = g
+        return self.evaluate_G_tall(t, self.to_tall(R), g_t,
+                                    self.to_tall(g_R), f)
+
+    def reduced_euclidean_grad(self, t, R, g_R):
+        """nabla_R G(X) = g_R + mG10 t + mG11 R."""
+        return g_R + self.mG10_apply(t) + self.mG11_apply(R)
+
+    def reduced_hessian_vp(self, R, nablaR, Rdot):
+        """Riemannian Hessian-vector product of the reduced (t-eliminated)
+        surrogate, edge-wise. The rhs has exactly zero null component, so
+        the null response is dropped (see solve_mG00)."""
+        rhs = self.mG01_apply(Rdot)
+        tdot = -self.solve_mG00(rhs, t_anchor=torch.zeros_like(rhs))
+        E = self.mG10_apply(tdot) + self.mG11_apply(Rdot)
+        E = E - sym_block_diag_product(Rdot, R, nablaR)
+        return proj_tangent(R, E)
+
+    def precondition(self, R, V):
+        """Block-Jacobi preconditioner + tangent projection."""
+        return proj_tangent(R, V @ self.precon_inv)
 
     # ------------------------------------------------ dense operators
 
@@ -497,6 +595,13 @@ class NodeProblem:
         return (fobj + 0.5 * (_nsum(Gt * dt) + _nsum(GQ * dQ))
                 + _nsum(g_t * dt) + _nsum(g_Q * dQ))
 
+    def evaluate_G_tall(self, t, Q, g_t, g_Q, f):
+        """Dense surrogate value in tall storage: 1/2 <G X, X> + <g, X> + f."""
+        quad = _nsum(t * (self.mG00_d @ t)) \
+            + 2.0 * _nsum(t * (self.mG01_d @ Q)) \
+            + _nsum(Q * (self.mG11_d @ Q))
+        return 0.5 * quad + _nsum(g_t * t) + _nsum(g_Q * Q) + f
+
     def reduced_grad_tall(self, t, Q, g_Q):
         return g_Q + self.mG01_d.transpose(-1, -2) @ t + self.mG11_d @ Q
 
@@ -510,7 +615,15 @@ class NodeProblem:
     def precondition_tall(self, Q, V):
         return self.proj_tall(Q, self.precon_dense @ V)
 
-    def recover_translations_tall(self, Q, g_t, t_anchor):
+    def precondition_tall_jacobi(self, Q, V):
+        """Block-Jacobi preconditioner in tall Q-storage: the per-pose
+        blocks act on R-storage from the right, which in Q = R^T storage is
+        a left-multiply by the (symmetric) block."""
+        N, d = V.shape[0], self.d
+        P = (self.precon_inv @ V.reshape(N, -1, d, d)).reshape(V.shape)
+        return self.proj_tall(Q, P)
+
+    def recover_translations_tall(self, Q, g_t, t_anchor=None):
         return -self.solve_mG00(g_t + self.mG01_d @ Q, t_anchor)
 
 
@@ -648,6 +761,7 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
     nvec = np.zeros((N, n0m, d))
     S = np.tile(1.5 * xi * np.eye(d), (N, n0m, 1, 1))
     mG00 = np.zeros((N, n0m, n0m))
+    jac = np.tile(xi * np.eye(d), (N, n0m, 1, 1))  # mG11 block-diagonal
 
     for a in range(N):
         ii, jj = mg.a_i[a], mg.a_j[a]
@@ -668,6 +782,11 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
         np.add.at(mG00[a], (jj, jj), w)
         np.add.at(mG00[a], (ii, jj), -w)
         np.add.at(mG00[a], (jj, ii), -w)
+        # mG11 block diagonal (Jacobi preconditioner).
+        np.add.at(jac[a], ii, (kap * msk)[:, None, None] * np.eye(d)
+                  + (tau * msk)[:, None, None]
+                  * tt[:, :, None] * tt[:, None, :])
+        np.add.at(jac[a], jj, (kap * msk)[:, None, None] * np.eye(d))
 
         es = mg.e_self[a]
         et = mg.e_tau[a] * mg.e_mask[a]
@@ -680,6 +799,9 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
                   + (2 * et * is_tail)[:, None, None]
                   * ett[:, :, None] * ett[:, None, :])
         np.add.at(mG00[a], (es, es), 2 * et)
+        np.add.at(jac[a], es, (2 * ek)[:, None, None] * np.eye(d)
+                  + (2 * et * is_tail)[:, None, None]
+                  * ett[:, :, None] * ett[:, None, :])
 
         # Padded poses get an identity diagonal (decoupled, well-conditioned).
         real = mg.pose_mask[a]
@@ -761,13 +883,20 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
         Hred_d[a] = mG11_d[a] - mG01_d[a].T @ X
         Hred_d[a] = 0.5 * (Hred_d[a] + Hred_d[a].T)
 
+    # Regularized block-Jacobi preconditioner: per-pose inverses of the mG11
+    # diagonal blocks + (lambda_max(mG11) / precon_cond) I, lambda_max by
+    # Lanczos on the dense mG11 (seed a, as in the JAX package).
+    from dpgo_tpu_torch.ops.eigen import lambda_max_lanczos
+    lam_max = np.array([lambda_max_lanczos(mG11_d[a], seed=a)
+                        for a in range(N)])
+    precon_inv = np.linalg.inv(
+        jac + (lam_max / precon_cond)[:, None, None, None] * np.eye(d))
+
     # Dense regularized inverse of the full reduced Hessian (the
     # reference's RegularizedCholesky role, lambda_max by Lanczos as
     # Spectra does there; seeds as in the JAX package): applied as one
     # matmul per STPCG iteration, so CG only corrects for the curvature
-    # term and the tangent projection. (The JAX package's block-Jacobi
-    # alternative is not ported.)
-    from dpgo_tpu_torch.ops.eigen import lambda_max_lanczos
+    # term and the tangent projection.
     precon_dense = np.zeros((N, nd, nd))
     for a in range(N):
         lam_h = lambda_max_lanczos(Hred_d[a], seed=1000 + a)
@@ -792,7 +921,7 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
 
     arrays = dict(
         pose_mask=mg.pose_mask, diagT_inv=Tinv, nvec=nvec, W=W,
-        Minv_red=Minv_red, null_V=null_V,
+        Minv_red=Minv_red, null_V=null_V, precon_inv=precon_inv,
         mG00_d=mG00_full, mG01_d=mG01_d, mG11_d=mG11_d, Hred_d=Hred_d,
         precon_dense=precon_dense,
         scale_w=np.ones((N, mg.m1_max)), ipose=ipose, imask=imask, SU=SU,

@@ -1,19 +1,27 @@
-"""AMM-PGO# (decentralized, adaptive-restart) solver, batched over the node
-axis (torch port of the AMM path of dpgo_tpu/solvers/mm.py).
+"""MM-PGO and AMM-PGO# (decentralized, adaptive-restart) solvers, batched
+over the node axis (torch port of dpgo_tpu/solvers/mm.py).
 
 - `update_state` = DPGOHash::update: surrogate anchors at the freshly
   communicated Z, Nesterov s/gamma, exponential reference sequences
-  Fk0/Fk1, restart hit counters, oscillation window.
+  Fk0/Fk1, restart hit counters, oscillation window (AMM), or the plain
+  anchors (MM).
 - `iterate_amm`  = DPGOHash::amm_pgo: extrapolation, closed-form proximal
   step, TNT refinement, the adaptive retry / restart / phi-test cascade.
+- `iterate_mm`   = DPGOHash::mm_pgo: proximal step and TNT refinement.
 - `rescale` / `reweighted_problems`: robust losses under dynamic rescale
   update and iterate on the problems reweighted by the state's persisted
   weights (`with_weights`).
 
+The TNT refinement runs the dense model with the preconditioner the options
+name ("dense", "jacobi" or "none"); kernel K1 takes its trust-region
+subproblem under "dense" only, the torch `stpcg` otherwise, as the JAX
+package runs its XLA CG there. `_make_tnt_model` is the edge-wise R-space
+model with the block-Jacobi preconditioner (DChordal's stage 0).
+
 Control flow: where the JAX package branches on the device (`lax.cond` on
 `jnp.any(mask)`), this port reads the flag on the host through a
-`HostSyncs` counter and skips the branch in Python. Plain MM (`iterate_mm`),
-AMM-PGO* and Anderson acceleration are not ported yet.
+`HostSyncs` counter and skips the branch in Python. Anderson acceleration
+(`scheme="aa"`) is not ported.
 """
 
 from __future__ import annotations
@@ -52,8 +60,9 @@ class MMOptions:
     telescoped: bool | None = None
     # Local gauge centering (driver). None = on in f32, off in f64.
     local_gauge: bool | None = None
-    # STPCG preconditioner: None or "dense" (the regularized reduced-Hessian
-    # inverse). The JAX package's "none" and "jacobi" are not ported.
+    # STPCG preconditioner: "none" | "jacobi" (block-Jacobi of mG11) |
+    # "dense" (the regularized reduced-Hessian inverse). None = "dense" (the
+    # port's problems are all on the dense operator path).
     preconditioner: str | None = None
     eta0: float = 5e-4
     eta1: float = 2.5e-2
@@ -153,9 +162,12 @@ def init_state(probs: NodeProblem, Z: NodeState, opts: MMOptions) -> MMState:
 def _check_supported(probs: NodeProblem, opts: MMOptions):
     if opts.rescale not in ("static", "dynamic"):
         raise ValueError(f"unknown rescale {opts.rescale!r}")
-    if resolve_scheme(opts) != "amm":
-        raise NotImplementedError(
-            f"scheme {resolve_scheme(opts)!r} is not ported yet (AMM only)")
+    scheme = resolve_scheme(opts)
+    if scheme == "aa":
+        raise NotImplementedError("scheme 'aa' (Anderson acceleration) is "
+                                  "not ported")
+    if scheme not in ("amm", "mm"):
+        raise ValueError(f"unknown scheme {scheme!r}")
     if not probs.dense:
         raise NotImplementedError("only the dense operator path is ported")
 
@@ -236,31 +248,37 @@ def update_state(probs: NodeProblem, st: MMState, opts: MMOptions,
     else:
         Fk0, Fk1, Gk, fobj_prev = st.Fk0, st.Fk1, st.Gk, st.fobj
 
-    s0 = st.s_next if not first else st.s  # s_k (post-restart value)
-    s1 = 0.5 + 0.5 * torch.sqrt(4.0 * s0 * s0 + 1.0)
-    gamma = (s0 - 1.0) / s1
+    if resolve_scheme(opts) == "amm":
+        s0 = st.s_next if not first else st.s  # s_k (post-restart value)
+        s1 = 0.5 + 0.5 * torch.sqrt(4.0 * s0 * s0 + 1.0)
+        gamma = (s0 - 1.0) / s1
 
-    dec0 = fobj <= Fk1
-    hits0 = torch.where(dec0, torch.clamp(st.hits0 - 2, min=0),
-                        st.hits0 + 1)
+        dec0 = fobj <= Fk1
+        hits0 = torch.where(dec0, torch.clamp(st.hits0 - 2, min=0),
+                            st.hits0 + 1).to(torch.int32)
 
-    if first:
-        hits1, osc_buf, num_osc = st.hits1, st.osc_buf, st.num_osc
-    else:
-        dec = fobj <= fobj_prev
-        hits1 = torch.where(dec, 0, st.hits1 + 1).to(torch.int32)
-        osc_new = dec.to(torch.int32)
-        osc_buf = torch.cat([st.osc_buf[:, 1:], osc_new[:, None]], dim=1)
-        # += osc[k] != osc[k-1]
-        num_osc = st.num_osc + (osc_buf[:, -1] != osc_buf[:, -2]).to(
-            torch.int32)
-        # -= osc[k-P] != osc[k-P-1] once k > P
-        if k > opts.oscillation_cnt_period:
-            num_osc = num_osc - (osc_buf[:, 1] != osc_buf[:, 0]).to(
+        if first:
+            hits1, osc_buf, num_osc = st.hits1, st.osc_buf, st.num_osc
+        else:
+            dec = fobj <= fobj_prev
+            hits1 = torch.where(dec, 0, st.hits1 + 1).to(torch.int32)
+            osc_new = dec.to(torch.int32)
+            osc_buf = torch.cat([st.osc_buf[:, 1:], osc_new[:, None]], dim=1)
+            # += osc[k] != osc[k-1]
+            num_osc = st.num_osc + (osc_buf[:, -1] != osc_buf[:, -2]).to(
                 torch.int32)
+            # -= osc[k-P] != osc[k-P-1] once k > P
+            if k > opts.oscillation_cnt_period:
+                num_osc = num_osc - (osc_buf[:, 1] != osc_buf[:, 0]).to(
+                    torch.int32)
 
-    Fk0 = Fk0 * (1 - opts.eta0) + fobj * opts.eta0
-    Fk1 = torch.maximum(fobj, Fk1 * (1 - opts.eta1) + fobj * opts.eta1)
+        Fk0 = Fk0 * (1 - opts.eta0) + fobj * opts.eta0
+        Fk1 = torch.maximum(fobj, Fk1 * (1 - opts.eta1) + fobj * opts.eta1)
+    else:
+        s0, s1, gamma = st.s, st.s_next, st.gamma
+        hits0, hits1 = st.hits0, st.hits1
+        osc_buf, num_osc = st.osc_buf, st.num_osc
+        Fk0 = Fk1 = fobj
 
     return st.replace(
         g_t=g_t, g_R=g_R, f=f, fobj=fobj, Df_t=Df_t, Df_R=Df_R,
@@ -271,7 +289,7 @@ def update_state(probs: NodeProblem, st: MMState, opts: MMOptions,
         fobj_prev=fobj_prev, gradFnorm=gradFnorm,
         Gk=Gk, Fk0=Fk0, Fk1=Fk1,
         s=s0, s_next=s1, gamma=gamma,
-        hits0=hits0.to(torch.int32), hits1=hits1, osc_buf=osc_buf,
+        hits0=hits0, hits1=hits1, osc_buf=osc_buf,
         num_osc=num_osc,
         z_rt=zres[0][0], z_rR=zres[0][1], z_us=zres[1][0], z_Es=zres[1][1],
     )
@@ -280,11 +298,55 @@ def update_state(probs: NodeProblem, st: MMState, opts: MMOptions,
 # -------------------------------------------------------------- TNT plumbing
 
 
+def _make_tnt_model(p: NodeProblem, g_t, g_R, f, t_anchor=None,
+                    precon: str = "jacobi", anchor=None) -> TNTModel:
+    """Edge-wise TNT model in R-space (variable (t, R [N, n, d, d])), the
+    translations eliminated through the split inverse; preconditioned by
+    the block-Jacobi blocks (or not at all under "none").
+
+    `anchor` = (z_t, z_R, fobj): the objective is the f32-stable relative
+    form against the MM anchor (evaluate_G_rel), else the absolute form
+    with the surrogate constant `f`. `t_anchor`: see solve_mG00."""
+    if anchor is not None:
+        z_t, z_R, fobj = anchor
+        zres = p.anchor_residuals(z_t, z_R)
+
+        def objective(x):
+            return p.evaluate_G_rel(z_t, z_R, x[0], x[1], (g_t, g_R), fobj,
+                                    zres=zres)
+    else:
+        def objective(x):
+            return p.evaluate_G(x[0], x[1], (g_t, g_R), f)
+
+    def grad_and_nabla(x):
+        nabla = p.reduced_euclidean_grad(x[0], x[1], g_R)
+        return proj_tangent(x[1], nabla), nabla
+
+    def hess_vp(x, nabla, v):
+        return p.reduced_hessian_vp(x[1], nabla, v)
+
+    if precon == "none":
+        def precondition(x, v):
+            return v
+    else:
+        def precondition(x, v):
+            return p.precondition(x[1], v)
+
+    def retract(x, h):
+        R_new = project_sod(x[1] + h, p.kernels)
+        return p.recover_translations(R_new, g_t, t_anchor), R_new
+
+    return TNTModel(objective=objective, grad_and_nabla=grad_and_nabla,
+                    hess_vp=hess_vp, precondition=precondition,
+                    retract=retract)
+
+
 def _make_tnt_model_dense(p: NodeProblem, g_t, g_Q, t_anchor, anchor,
-                          tnt_params: TNTParams,
+                          tnt_params: TNTParams, precon: str = "dense",
                           syncs: HostSyncs | None = None) -> TNTModel:
     """Dense TNT model in tall Q-storage (variable (t, Q [N, n d, d])),
-    preconditioned by the regularized reduced-Hessian inverse.
+    preconditioned by the regularized reduced-Hessian inverse ("dense"),
+    the block-Jacobi blocks ("jacobi") or nothing ("none").
 
     `anchor` = (z_t, z_Q, fobj): the objective is the f32-stable relative
     form against the MM anchor (evaluate_G_tall_rel)."""
@@ -300,8 +362,15 @@ def _make_tnt_model_dense(p: NodeProblem, g_t, g_Q, t_anchor, anchor,
     def hess_vp(x, nabla, v):
         return p.hessian_vp_tall(x[1], nabla, v)
 
-    def precondition(x, v):
-        return p.precondition_tall(x[1], v)
+    if precon == "none":
+        def precondition(x, v):
+            return v
+    elif precon == "jacobi":
+        def precondition(x, v):
+            return p.precondition_tall_jacobi(x[1], v)
+    else:
+        def precondition(x, v):
+            return p.precondition_tall(x[1], v)
 
     def retract(x, h):
         N = h.shape[0]
@@ -309,9 +378,10 @@ def _make_tnt_model_dense(p: NodeProblem, g_t, g_Q, t_anchor, anchor,
         Q_new = project_sod(Qb, p.kernels).reshape(x[1].shape)
         return p.recover_translations_tall(Q_new, g_t, t_anchor), Q_new
 
-    # Fused single-launch STPCG (kernel K1) behind its Hopper gate.
+    # Fused single-launch STPCG (kernel K1) behind its Hopper gate, with
+    # the dense preconditioner it streams.
     fused = None
-    if p.fused_stpcg_supported():
+    if precon == "dense" and p.fused_stpcg_supported():
         fkern = stpcg_fused if p.kernels else stpcg_fused_reference
 
         def fused(x, nabla, grad, pgrad, Delta, active):
@@ -350,33 +420,33 @@ def stpcg_inputs(p: NodeProblem, st: MMState):
 
 
 def resolve_preconditioner(probs: NodeProblem, opts: MMOptions) -> str:
-    """The STPCG preconditioner; "dense" is the only one ported."""
-    kind = opts.preconditioner or "dense"
-    if kind in ("none", "jacobi"):
-        raise NotImplementedError(f"preconditioner {kind!r} is not ported "
-                                  "yet")
-    if kind != "dense":
+    """The STPCG preconditioner the options name ("dense" when None)."""
+    kind = opts.preconditioner
+    if kind is None:
+        return "dense" if probs.dense else "jacobi"
+    if kind not in ("none", "jacobi", "dense"):
         raise ValueError(f"unknown preconditioner {kind!r}")
-    if not probs.dense:
+    if kind == "dense" and not probs.dense:
         raise ValueError("preconditioner='dense' needs the dense operator "
                          "path (raise dense_limit)")
     return kind
 
 
 def _tnt_batch(probs: NodeProblem, t0, R0, g_t, g_R, params: TNTParams,
-               t_anchor, anchor, syncs: HostSyncs | None = None,
-               lanes=None):
+               t_anchor, anchor, precon: str = "dense",
+               syncs: HostSyncs | None = None, lanes=None):
     """Batched TNT on the dense path; returns (t, R, G value at result)."""
     anchor = (anchor[0], probs.to_tall(anchor[1]), anchor[2])
     model = _make_tnt_model_dense(probs, g_t, probs.to_tall(g_R), t_anchor,
-                                  anchor, params, syncs=syncs)
+                                  anchor, params, precon=precon, syncs=syncs)
     x, fx, _, _ = tnt_generic(model, (t0, probs.to_tall(R0)), params,
                               syncs=syncs, lanes=lanes)
     return x[0], probs.from_tall(x[1]), fx
 
 
 def _masked_tnt(probs, t0, R0, g_t, g_R, mask, params: TNTParams,
-                fallback_G, syncs: HostSyncs, t_anchor, anchor):
+                fallback_G, syncs: HostSyncs, t_anchor, anchor,
+                precon: str = "dense"):
     """Run batched TNT only if any node needs it; select per node by mask.
     Returns (t, R, G value at result)."""
     if params.max_iterations <= 0 or params.max_iterations_accepted <= 0:
@@ -384,12 +454,18 @@ def _masked_tnt(probs, t0, R0, g_t, g_R, mask, params: TNTParams,
     if not syncs.flag(mask.any()):
         return t0, R0, fallback_G
     tn, Rn, fx = _tnt_batch(probs, t0, R0, g_t, g_R, params, t_anchor,
-                            anchor, syncs=syncs, lanes=mask)
+                            anchor, precon=precon, syncs=syncs, lanes=mask)
     return sel(mask, tn, t0), sel(mask, Rn, R0), torch.where(mask, fx,
                                                              fallback_G)
 
 
 # -------------------------------------------------------------------- iterate
+
+
+def _anchor_residuals_batch(probs: NodeProblem, st: MMState):
+    """Anchor residuals at Z, cached in the state by update_state (which
+    evaluates the same Z at the end of the previous step)."""
+    return ((st.z_rt, st.z_rR), (st.z_us, st.z_Es))
 
 
 def _eval_G_batch(probs: NodeProblem, st: MMState, t, R, zres):
@@ -439,12 +515,11 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
                | (st.num_osc >= opts.max_oscillations))
     if tnt_off:
         refined = torch.zeros_like(refined)
-    resolve_preconditioner(probs, opts)
+    precon_kind = resolve_preconditioner(probs, opts)
 
     # Proximal step from the extrapolated point (Xakh).
     th_t, th_R = probs.proximal(Y, (Df_t_ex, Df_R_ex))
-    # Anchor residuals at Z, cached in the state by update_state.
-    zres = ((st.z_rt, st.z_rR), (st.z_us, st.z_Es))
+    zres = _anchor_residuals_batch(probs, st)
 
     diff_t = th_t - st.Z.t
     diff_R = th_R - st.Z.R
@@ -463,7 +538,8 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
         Xak_t, Xak_R, _ = _masked_tnt(probs, t_c, th_R, g_t_ex, g_R_ex,
                                       refined, opts.tnt, Gkh, syncs,
                                       t_anchor=Y.t,
-                                      anchor=(st.Z.t, st.Z.R, st.fobj))
+                                      anchor=(st.Z.t, st.Z.R, st.fobj),
+                                      precon=precon_kind)
         Gk = _eval_G_batch(probs, st, Xak_t, Xak_R, zres)
 
     # Exceptional-path cascade (DPGOHash.cpp:386-441) in three stages (retry
@@ -497,7 +573,8 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
         # ~refined keep the evaluated proximal value.
         rt_t, rt_R, _ = _masked_tnt(
             probs, r_t, r_R, st.g_t, st.g_R, restart & refined, opts.tnt,
-            r_G, syncs, t_anchor=st.Z.t, anchor=(st.Z.t, st.Z.R, st.fobj))
+            r_G, syncs, t_anchor=st.Z.t, anchor=(st.Z.t, st.Z.R, st.fobj),
+            precon=precon_kind)
         Gk_restart = _eval_G_batch(probs, st, rt_t, rt_R, zres)
         Xk_t2 = sel(restart, rt_t, Xak_t)
         Xk_R2 = sel(restart, rt_R, Xak_R)
@@ -526,3 +603,28 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
     Z_new = NodeState(t=Xak_t2, R=Xak_R2, th=st.Z.th, Rh=st.Z.Rh)
     return st.replace(Z=Z_new, Z_prev=st.Z, Gk=Gk_f, s_next=s_next,
                       hits0=hits0, hits1=hits1)
+
+
+def iterate_mm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
+               syncs: HostSyncs | None = None) -> MMState:
+    """One plain MM-PGO iteration for all nodes (DPGOHash::mm_pgo): the
+    proximal step from Z, translations re-solved, TNT refinement where the
+    gradient gate asks for it."""
+    _check_supported(probs, opts)
+    syncs = syncs or HostSyncs()
+    refined = ((st.gradFnorm * st.gradFnorm / st.fobj) > opts.accepted_delta)
+    if opts.tnt.max_iterations <= 0 or opts.tnt.max_iterations_accepted <= 0:
+        refined = torch.zeros_like(refined)
+
+    th_t, th_R = probs.proximal(st.Z, (st.Df_t, st.Df_R))
+    t_c = probs.recover_translations(th_R, st.g_t, st.Z.t)
+    zres = _anchor_residuals_batch(probs, st)
+    G0 = _eval_G_batch(probs, st, t_c, th_R, zres)
+    Xak_t, Xak_R, _ = _masked_tnt(probs, t_c, th_R, st.g_t, st.g_R, refined,
+                                  opts.tnt, G0, syncs, t_anchor=st.Z.t,
+                                  anchor=(st.Z.t, st.Z.R, st.fobj),
+                                  precon=resolve_preconditioner(probs, opts))
+    Gk = _eval_G_batch(probs, st, Xak_t, Xak_R, zres)
+
+    Z_new = NodeState(t=Xak_t, R=Xak_R, th=st.Z.th, Rh=st.Z.Rh)
+    return st.replace(Z=Z_new, Z_prev=st.Z, Gk=Gk)

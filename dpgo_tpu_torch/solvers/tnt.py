@@ -41,6 +41,11 @@ class TNTParams:
     max_tCG_iterations: int = 250
     kappa_fgr: float = 0.05
     theta: float = 0.9
+    # Noise-floor gate (see step_core): stop refining when the first CG
+    # step's preconditioned model-decrease estimate 1/2 g^T P g falls below
+    # objective-evaluation noise. None derives it from the model's
+    # `precon_spans_full_space`; True / False override.
+    noise_floor_gate: bool | None = None
 
 
 class TNTModel(NamedTuple):
@@ -54,6 +59,9 @@ class TNTModel(NamedTuple):
     fused_stpcg (optional): (x, nabla, grad, pgrad, Delta, active) ->
         (h, Hh, h_M_norm, inner_iterations), a single-launch trust-region
         subproblem solver with the semantics of `stpcg` (kernel K1).
+    precon_spans_full_space: False when `precondition` omits part of the
+        tangent space; it turns the noise-floor gate off, whose estimate
+        1/2 g^T P g is a noise proxy only for a full-span preconditioner.
     """
 
     objective: Callable
@@ -62,6 +70,7 @@ class TNTModel(NamedTuple):
     precondition: Callable
     retract: Callable
     fused_stpcg: Callable | None = None
+    precon_spans_full_space: bool = True
 
 
 def stpcg(grad, hess_vp, precon, Delta, params: TNTParams, v0,
@@ -148,15 +157,19 @@ def tnt_generic(model: TNTModel, x0: tuple, params: TNTParams,
         # Noise-floor guard: the first CG step's model decrease is
         # ~ 1/2 g^T P g; below the working precision's objective-evaluation
         # noise, accept/reject gain ratios are coin flips, so stop refining.
-        # Inactive in f64, where the floor is ~1e-14 |f|. (The JAX package
-        # lets a model whose preconditioner omits part of the tangent space
-        # turn it off; the port's only model, the dense one, spans it.)
-        dm_est = 0.5 * ip(st.grad, st.pgrad)
-        noise_floor = 16.0 * torch.finfo(dtype).eps * (1.0 + st.fx.abs())
+        # Inactive in f64, where the floor is ~1e-14 |f|; off for a model
+        # whose preconditioner omits part of the tangent space.
         grad_small = ((st.gradnorm < params.gradient_tolerance)
                       | (st.pgradnorm
-                         < params.preconditioned_gradient_tolerance)
-                      | (dm_est < noise_floor))
+                         < params.preconditioned_gradient_tolerance))
+        gate_on = (model.precon_spans_full_space
+                   if params.noise_floor_gate is None
+                   else params.noise_floor_gate)
+        if gate_on:
+            dm_est = 0.5 * ip(st.grad, st.pgrad)
+            noise_floor = 16.0 * torch.finfo(dtype).eps \
+                * (1.0 + st.fx.abs())
+            grad_small = grad_small | (dm_est < noise_floor)
 
         # Lanes outside `running` are discarded by the caller, so their CG
         # is skipped (zero step).
@@ -233,3 +246,12 @@ def tnt_generic(model: TNTModel, x0: tuple, params: TNTParams,
                 break
             out = body(out, running).select(running, out)
     return out.x, out.fx, out.gradnorm, out.accepted
+
+
+def tnt(model: TNTModel, t0, R0, params: TNTParams,
+        syncs: HostSyncs | None = None, lanes: torch.Tensor | None = None):
+    """DPGO-shaped entry: variable (t, R); returns (t, R, fx, gradnorm,
+    num_accepted)."""
+    x, fx, gn, acc = tnt_generic(model, (t0, R0), params, syncs=syncs,
+                                 lanes=lanes)
+    return x[0], x[1], fx, gn, acc

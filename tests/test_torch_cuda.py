@@ -242,15 +242,52 @@ def test_d2_problem_launches_k1(dev):
 
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    """A CUDA tensor goes to the kernel or raises: no fallback for float64
-    or non-contiguous input."""
+    """A CUDA tensor goes to the kernel or raises: no fallback for float16,
+    a wrong shape or non-contiguous input."""
     from dpgo_tpu_torch.ops.polar_so3_cuda import polar_so3_cuda
 
     with pytest.raises(TypeError):
-        polar_so3_cuda(torch.zeros((4, 3, 3), dtype=torch.float64,
+        polar_so3_cuda(torch.zeros((4, 3, 3), dtype=torch.float16,
                                    device=dev))
     with pytest.raises(ValueError):
-        polar_so3_cuda(torch.zeros((3, 3, 4), device=dev).transpose(0, 2))
+        polar_so3_cuda(torch.zeros((4, 3, 2), device=dev))
+    with pytest.raises(ValueError):
+        polar_so3_cuda(torch.zeros((3, 3, 4), dtype=torch.float64,
+                                   device=dev).transpose(0, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 10241])
+def test_polar_so3_kernel_f64_matches_plain(dev, rng, n):
+    """K2's float64 instantiation within 1e-12 of its plain version on
+    matrices with separated singular values, every fifth with det < 0 (as
+    tests/test_aux.py mixes them in), a zero matrix, and a ragged count;
+    it counts a float64 launch and writes nothing past the n-th matrix."""
+    from dpgo_tpu_torch.ops import _build
+    from dpgo_tpu_torch.ops.polar_so3_cuda import Launches, polar_so3_cuda
+    from dpgo_tpu_torch.ops.so3 import polar_so3
+    from dpgo_tpu_torch.synthetic import random_rotations
+
+    sigma = np.array([1.0, 2.0, 3.5]) + rng.uniform(0, 0.5, size=(n, 3))
+    sigma *= 10.0 ** rng.uniform(-2, 2, size=(n, 1))
+    A = random_rotations(rng, n) @ (
+        sigma[:, :, None] * random_rotations(rng, n).transpose(0, 2, 1))
+    A[::5] *= -1.0
+    A[3] = 0.0
+    At = torch.tensor(A, dtype=torch.float64, device=dev)
+    before = Launches.by_dtype[torch.float64]
+    R = polar_so3_cuda(At)
+    assert Launches.by_dtype[torch.float64] == before + 1
+    assert R.dtype == torch.float64
+    np.testing.assert_allclose(R.cpu().numpy(), polar_so3(At).cpu().numpy(),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(R[3].cpu().numpy(), np.eye(3), atol=0)
+    buf = torch.full((n + 1, 3, 3), 7.0, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(_build.load().dpgo_polar_so3_f64(
+        At.data_ptr(), buf.data_ptr(), n, stream), "polar_so3")
+    assert torch.equal(buf[:n], R)
+    assert bool((buf[n] == 7.0).all())
 
 
 @pytest.mark.cuda
@@ -280,3 +317,95 @@ def test_slice_kernels_match_plain_versions(dev):
         == (k1, k2)
     assert torch.isfinite(f).all()
     np.testing.assert_allclose(f.cpu().numpy(), fp.cpu().numpy(), rtol=1e-4)
+
+
+def _grid3d():
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+    return read_g2o_file(os.path.join(REPO, "artifacts", "grid3D_synth.g2o"))
+
+
+@pytest.mark.cuda
+def test_default_f64_solver_runs_through_k2_f64(dev):
+    """DPGOSolver with its defaults (float64, the card) at d = 3 launches
+    K2's float64 instantiation (never the float32 one) and agrees with the
+    run through the plain versions: per-step 2f within rtol 1e-9 over 10
+    steps."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.ops.polar_so3_cuda import Launches
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    s = DPGOSolver(_grid3d(), num_nodes=4)
+    assert s.dtype == torch.float64 and s.probs.Hred_d.is_cuda
+    f32, f64 = (Launches.by_dtype[torch.float32],
+                Launches.by_dtype[torch.float64])
+    _, _, (f, _) = s.run_steps_history(s.initialize(), 0, 10)
+    assert Launches.by_dtype[torch.float64] > f64
+    assert Launches.by_dtype[torch.float32] == f32
+    s.probs = dataclasses.replace(s.probs, kernels=False)
+    s.syncs = HostSyncs()
+    count = Launches.count
+    _, _, (fp, _) = s.run_steps_history(s.initialize(), 0, 10)
+    assert Launches.count == count
+    np.testing.assert_allclose(f.cpu().numpy(), fp.cpu().numpy(), rtol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["star", "mm"])
+def test_new_schemes_kernels_match_plain(dev, solver):
+    """AMM-PGO* (DPGOStarSolver) and MM-PGO (accelerated=False) in float32
+    on artifacts/grid3D_synth.g2o with 4 nodes: 20 steps through K1 and K2
+    agree with the same run through their plain versions (per-step 2f
+    within rtol 1e-4); both kernels launched; MM's 2f never rises by more
+    than 1e-5 of itself."""
+    from dpgo_tpu_torch.driver import DPGOSolver, DPGOStarSolver
+    from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    cls = DPGOStarSolver if solver == "star" else DPGOSolver
+    s = cls(_grid3d(), num_nodes=4,
+            opts=MMOptions(accelerated=solver == "star"),
+            dtype=torch.float32, device=dev)
+    assert s.fused_stpcg_engaged()
+    k1, k2 = stpcg_cuda.Launches.count, polar_so3_cuda.Launches.count
+    _, _, (f, _) = s.run_steps_history(s.initialize(), 0, 20)
+    assert stpcg_cuda.Launches.count > k1
+    assert polar_so3_cuda.Launches.count > k2
+    s.probs = dataclasses.replace(s.probs, kernels=False)
+    s.syncs = HostSyncs()
+    k1, k2 = stpcg_cuda.Launches.count, polar_so3_cuda.Launches.count
+    _, _, (fp, _) = s.run_steps_history(s.initialize(), 0, 20)
+    assert (stpcg_cuda.Launches.count, polar_so3_cuda.Launches.count) \
+        == (k1, k2)
+    f = f.cpu().numpy()
+    assert np.isfinite(f).all()
+    np.testing.assert_allclose(f, fp.cpu().numpy(), rtol=1e-4)
+    if solver == "mm":
+        assert np.all(np.diff(f) <= 1e-5 * np.abs(f[1:]))
+
+
+@pytest.mark.cuda
+def test_dchordal_kernels_match_plain(dev):
+    """distributed_chordal_init in float32 on the card with K2 and with
+    kernels=False (plain versions) on artifacts/grid3D_synth.g2o with 4
+    nodes: K2 launched only by the first; 2f of the two starts within 1e-4
+    relative; every rotation in SO(3) (|R^T R - I| <= 1e-4)."""
+    from dpgo_tpu_torch.chordal import distributed_chordal_init
+    from dpgo_tpu_torch.chordal.dchordal import chordal_objective
+    from dpgo_tpu_torch.ops.polar_so3_cuda import Launches
+
+    meas = _grid3d()
+    count = Launches.count
+    t, R = distributed_chordal_init(meas, 4, dtype=torch.float32,
+                                    device=dev)
+    assert Launches.count > count
+    count = Launches.count
+    tp, Rp = distributed_chordal_init(meas, 4, dtype=torch.float32,
+                                      device=dev, kernels=False)
+    assert Launches.count == count
+    f = chordal_objective(meas, t.astype(np.float64), R.astype(np.float64))
+    fp = chordal_objective(meas, tp.astype(np.float64),
+                           Rp.astype(np.float64))
+    np.testing.assert_allclose(f, fp, rtol=1e-4)
+    RtR = np.einsum("nki,nkj->nij", R.astype(np.float64), R)
+    assert np.abs(RtR - np.eye(3)).max() <= 1e-4
