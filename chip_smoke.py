@@ -33,9 +33,29 @@ TNT preset, 16 nodes, float32, 150 iterations:
    (30 iterations; K1 at D = 2), and the float64 default on
    `artifacts/grid3D_synth.g2o` with 4 nodes (20 iterations; K2's float64
    instantiation).
+7. node blocks above the dense limit, float32, at the package's default
+   limits (dense_limit 4096, segment_limit 2048, seg_size 128). K2 only:
+   K1 is built for dense blocks.
+   - rim100k_prox: `artifacts/rim_synth_100k.g2o` (102,400 poses, 6,400
+     per node, made by `tools/make_rim.py --rows 32 --cols 64 --floors 50`
+     in a subprocess when the file is absent), AMM-PGO# with the refinement
+     off, 100 steps: the segment path's CG translation solves.
+   - rim100k_refined: the same solver under the refined preset, 100 steps:
+     the coupled (t, R) TNT model.
+   - rim100k_robust: the graph with every tenth inter-node edge replaced by
+     an outlier (SEED + 5), Huber + dynamic rescale, 60 steps: the CG
+     matvec reads the rescale weights.
+   - rim_edgewise: rim_synth with 6 nodes (1,707 poses per node,
+     n0 d = 5,121), refined preset, 150 steps: the matrix-free operators
+     and the R-space TNT model with the block-Jacobi preconditioner.
+   On the rim100k solver two choices the package made are measured again:
+   the block form of `mG00_matvec` against the edge-wise form, and the
+   host-read CG loop against a fixed-trip loop that reads nothing (both
+   alternatives are defined here, held to the package's results, and timed
+   in turns).
 
-Paths 1-5 are checked against the same path run with the kernels' plain
-versions on the card, and against the exact global objective.
+Paths 1-5 and 7 are checked against the same path run with the kernels'
+plain versions on the card, and against the exact global objective.
 
 Each K1 phase holds the kernel against its plain version at every cluster
 size the card admits for the phase's shape (C CTAs per node, C in 1, 2, 4,
@@ -71,6 +91,12 @@ PROFILE_STEPS = 20
 NUM_NODES = 16
 SEED = 0
 DATASET = os.path.join("artifacts", "rim_synth.g2o")
+RIM100K = os.path.join("artifacts", "rim_synth_100k.g2o")
+# 2f after 100 proximal-only steps on rim_synth_100k with 16 nodes as the
+# JAX package's bench recorded it (BENCH_r05.json, fobj_2x_100it): printed
+# beside the port's, not held.
+RIM100K_JAX_2F_100 = 167909.09
+EDGEWISE_NODES = 6
 LOSS_REG = 0.25  # the CLI's default robust-loss parameter
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
 # bandwidth, float32 and float64 outside the tensor cores (the kernels'
@@ -150,10 +176,10 @@ def bound(nbytes: float, flops: float, flop_s: float = F32_FLOP_S):
                                        else "operations")
 
 
-def phase_polar_so3(rng, dev, card):
-    """K2 against its plain version on 10,240 matrices (the rim paths'
-    projection batch: 16 nodes x 640 poses), every fifth with det < 0, plus
-    one zero matrix."""
+def phase_polar_so3(rng, dev, card, n=NUM_NODES * 640):
+    """K2 against its plain version on n matrices (10,240: the rim paths'
+    projection batch, 16 nodes x 640 poses; 102,400: the rim100k paths',
+    16 x 6,400), every fifth with det < 0, plus one zero matrix."""
     import numpy as np
     import torch
 
@@ -162,7 +188,6 @@ def phase_polar_so3(rng, dev, card):
     from dpgo_tpu_torch.ops.so3 import polar_so3
     from dpgo_tpu_torch.synthetic import random_rotations
 
-    n = NUM_NODES * 640
     # A = U diag(sigma) V^T with random rotations U, V and singular values
     # in [1, 1.5], [2, 2.5], [3.5, 4] times a scale in 1e-2..1e2; every fifth
     # negated (det < 0). The projection of a det < 0 matrix flips the
@@ -431,21 +456,23 @@ def phase_stpcg(label, p, st, tp, card, deltas=(1.0, 0.02, 100.0),
     return out
 
 
-def profile_path(name, solver, init, card):
-    """Steps PROFILE_AT to PROFILE_AT + PROFILE_STEPS of a fresh run of one
-    path under torch.profiler, after PROFILE_STEPS steps timed without it:
+def profile_path(name, solver, init, card, at=PROFILE_AT,
+                 steps=PROFILE_STEPS):
+    """Steps `at` to `at + steps` of a fresh run of one path under
+    torch.profiler, after `steps` steps timed without it:
     device ms per step (all CUDA activity), its share of the unprofiled wall
     ms per step (the busy share), K1's and K2's device ms and launches per
     step, and the six largest kernels; printed and returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    steps = PROFILE_STEPS
-    st, k = solver.run_steps(solver.initialize(*init), 0, PROFILE_AT - steps)
+    st, k = solver.run_steps(solver.initialize(*init), 0, at - steps)
+    syncs0 = solver.syncs.count
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st, k = solver.run_steps(st, k, steps)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    syncs = (solver.syncs.count - syncs0) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         solver.run_steps(st, k, steps)
@@ -461,16 +488,21 @@ def profile_path(name, solver, init, card):
     k1_ms, k1_n = of("stpcg_kernel")
     k2_ms, k2_n = of("polar_so3_kernel")
     top = sorted(kt.items(), key=lambda kv: -kv[1][0])[:6]
-    prof = {"device_ms_per_step": total, "wall_ms_per_step": wall_ms,
+    prof = {"steps": [at, at + steps], "device_ms_per_step": total,
+            "wall_ms_per_step": wall_ms, "host_syncs_per_step": syncs,
             "busy_share": total / wall_ms, "k1_ms_per_step": k1_ms,
             "k1_launches_per_step": k1_n, "k2_ms_per_step": k2_ms,
             "k2_launches_per_step": k2_n,
-            "top": [[key[:80], ms / steps] for key, (ms, _) in top]}
-    print(f"{name} profile of steps {PROFILE_AT}-{PROFILE_AT + PROFILE_STEPS}"
+            "top": [[key[:80], ms / steps, n / steps]
+                    for key, (ms, n) in top]}
+    print(f"{name} profile of steps {at}-{at + steps}"
           f" [{card}]: device {total:.3f} ms/step of {wall_ms:.3f} wall "
-          f"(busy share {total / wall_ms:.3f}); K1 {k1_ms:.3f} ms/step over "
+          f"(busy share {total / wall_ms:.3f}), {syncs:.2f} host syncs/step; "
+          f"K1 {k1_ms:.3f} ms/step over "
           f"{k1_n:.2f} launches, K2 {k2_ms:.4f} ms/step over {k2_n:.2f}; "
-          "top: " + "; ".join(f"{n} {ms:.3f}" for n, ms in prof["top"]))
+          "top (ms/step, launches/step): "
+          + "; ".join(f"{key} {ms:.3f} ({n:.1f})"
+                      for key, ms, n in prof["top"]))
     return prof
 
 
@@ -505,16 +537,24 @@ def profile_dchordal(meas, dev, card):
     return out
 
 
-def run_slice(solver, init, label, steps):
+def run_slice(solver, init, label, steps, runs=2):
     """initialize + `steps` steps with history, then a second, timed run of
-    `steps` steps from the same start. Returns (2f init, 2f history, 2f
-    exact at the end, it/s, host syncs per step, final state)."""
+    `steps` steps from the same start; with `runs=1` (the paths whose steps
+    take a tenth of a second and more) the history run is the timed one.
+    Returns (2f init, 2f history, 2f exact at the end, it/s, host syncs per
+    step, final state)."""
     import numpy as np
     import torch
 
     st = solver.initialize(*init)
     f0, g0 = solver._metrics(st)
+    torch.cuda.synchronize()
+    syncs0 = solver.syncs.count
+    t0 = time.perf_counter()
     st, _, (fh, gh) = solver.run_steps_history(st, 0, steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    syncs = (solver.syncs.count - syncs0) / steps
     f_end, g_end = solver._metrics(st)
     fh = fh.cpu().numpy()
     gh = gh.cpu().numpy()
@@ -524,6 +564,8 @@ def run_slice(solver, init, label, steps):
           f"{label}: non-finite history")
     for name, x in (("Z.t", st.Z.t), ("Z.R", st.Z.R)):
         check(bool(torch.isfinite(x).all()), f"{label}: non-finite {name}")
+    if runs == 1:
+        return float(f0), fh, float(f_end), steps / secs, syncs, st
 
     st2 = solver.initialize(*init)
     torch.cuda.synchronize()
@@ -553,35 +595,49 @@ def reset_counts():
     stpcg_cuda.Launches.reset()
 
 
+def loop_stats(syncs) -> dict:
+    """Trips per entry of the host-driven loops a run reported (the segment
+    path's translation CG, the torch STPCG): {name: [entries, trips per
+    entry]}."""
+    return {name: [n, trips / max(n, 1)]
+            for name, (n, trips) in syncs.loops.items()}
+
+
 def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
-             monotone=False):
+             monotone=False, fused=True, runs=2):
     """Drive one path through the kernels (launch counts reset just before,
     unless the caller did so before its own part of the path, and read just
     after), then through the plain versions on the same problems; check
     decrease, the global oracle, kernel-vs-plain agreement and that every
     kernel in `needs` was launched; with `monotone`, that 2f never rose by
-    more than 1e-5 of itself from one step to the next. Returns (summary
-    dict, launches, final state of the kernel run)."""
+    more than 1e-5 of itself from one step to the next. `fused` says whether
+    the path's TNT subproblem runs in kernel K1 (the dense paths): the
+    solver must report the same, and a path off the dense images must not
+    launch K1. `runs`: see run_slice. Returns (summary dict, launches, final
+    state of the kernel run)."""
     import numpy as np
     import torch
 
     from dpgo_tpu_torch.utils import HostSyncs
 
-    check(solver.fused_stpcg_engaged(), f"{name}: fused_stpcg_engaged() is "
-          "False")
+    check(solver.fused_stpcg_engaged() == fused, f"{name}: "
+          f"fused_stpcg_engaged() is {not fused}")
+    solver.syncs = HostSyncs()
     fallbacks = getattr(solver, "fallbacks", None)
     if fallbacks is not None:
         fallbacks.update(dict.fromkeys(fallbacks, 0))
     if reset:
         reset_counts()
-    f0, fh, f_exact, its, syncs, st = run_slice(solver, init, name, steps)
+    f0, fh, f_exact, its, syncs, st = run_slice(solver, init, name, steps,
+                                                runs)
     launches = kernel_counts()
+    over = "two runs" if runs == 2 else "one run"
     print(f"{name} with kernels [{card}]: 2f init {f0:.6f}, 2f at {steps} "
           f"{fh[-1]:.6f} (exact oracle {f_exact:.6f}), {its:.2f} it/s, "
-          f"{syncs:.2f} host syncs/step, launches {launches} over two runs "
+          f"{syncs:.2f} host syncs/step, launches {launches} over {over} "
           f"of {steps} steps")
     if fallbacks is not None:
-        print(f"{name}: master fallbacks over two runs of {steps} steps "
+        print(f"{name}: master fallbacks over {over} of {steps} steps "
               f"{fallbacks}")
     rise = float(np.max(np.diff(fh) / np.abs(fh[1:])))
     if monotone:
@@ -591,6 +647,13 @@ def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
     for kern in needs:
         check(launches[kern] > 0, f"{name}: kernel {kern} was not launched: "
               f"{launches}")
+    if not fused:
+        check(launches["stpcg"] == launches["stpcg_d2"] == 0,
+              f"{name}: K1 was launched off the dense path: {launches}")
+    loops = loop_stats(solver.syncs)
+    if loops:
+        print(f"{name}: host-driven loops, [entries, trips per entry] over "
+              f"{over} of {steps} steps: {loops}")
     check(fh[-1] < f0, f"{name}: 2f did not decrease: {fh[-1]} >= {f0}")
     check(abs(f_exact - fh[-1]) <= 1e-3 * abs(f_exact),
           f"{name}: node-objective sum {fh[-1]} disagrees with the global "
@@ -604,7 +667,7 @@ def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
         twin.fallbacks = dict.fromkeys(fallbacks, 0)
     before = kernel_counts()
     _, fhp, _, its_p, syncs_p, _ = run_slice(twin, init, f"{name} plain",
-                                             steps)
+                                             steps, runs)
     check(before == kernel_counts(), f"{name}: the plain run launched a "
           "kernel")
     rel = abs(fh[-1] - fhp[-1]) / abs(fhp[-1])
@@ -628,17 +691,297 @@ def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
           f"{dec[0]} of the decrease > 0.1")
     del twin
     torch.cuda.synchronize()
-    summary = {"steps": steps, "it_s": its, "plain_it_s": its_p,
+    summary = {"steps": steps, "timed_runs": runs, "it_s": its,
+               "plain_it_s": its_p,
                "f2_init": f0, "f2_final": float(fh[-1]),
                "f2_final_plain": float(fhp[-1]), "f2_exact": f_exact,
                "f2_step1_vs_plain_of_decrease": float(dec[0]),
                "host_syncs_per_step": syncs,
                "plain_host_syncs_per_step": syncs_p, "launches": launches,
-               "largest_rise_of_2f": rise, "card": card}
+               "largest_rise_of_2f": rise, "loops": loops, "card": card}
     if fallbacks is not None:
-        summary["fallbacks_per_step"] = {k: v / (2 * steps)
+        summary["fallbacks_per_step"] = {k: v / (runs * steps)
                                          for k, v in fallbacks.items()}
     return summary, launches, st
+
+
+def ensure_rim100k(root: str) -> str:
+    """The path of rim_synth_100k.g2o, made with tools/make_rim.py (numpy
+    only) in a subprocess when the file is absent."""
+    path = os.path.join(root, RIM100K)
+    if not os.path.exists(path):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, os.path.join(root, "tools", "make_rim.py"),
+             "--rows", "32", "--cols", "64", "--floors", "50", "--out", path],
+            check=True, timeout=600, capture_output=True, text=True).stdout
+        print(f"{out.strip()} in {time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def check_no_dense_block(name, probs, seg: bool):
+    """Off the dense path no [N, n0 d, n0 d] operator image exists, and on
+    the segment path no [N, n0, n0] array either: those fields are the
+    [N, 1, 1] placeholders, and no tensor of the problem is that large."""
+    import torch
+    N, n0 = probs.pose_mask.shape
+    fields = ["mG00_d", "mG01_d", "mG11_d", "Hred_d", "precon_dense"]
+    limit = N * (n0 * probs.d) ** 2
+    if seg:
+        fields += ["Minv_red", "SU"]
+        limit = N * n0 * n0
+    for f in fields:
+        check(tuple(getattr(probs, f).shape) == (N, 1, 1),
+              f"{name}: {f} has shape {tuple(getattr(probs, f).shape)}")
+    tensors = {k: v for k, v in vars(probs).items()
+               if isinstance(v, torch.Tensor)}
+    nbytes = sum(v.numel() * v.element_size() for v in tensors.values())
+    largest = max((v.numel(), k) for k, v in tensors.items())
+    check(largest[0] < limit, f"{name}: field {largest[1]} holds "
+          f"{largest[0]} elements, as many as a dense block ({limit})")
+    print(f"{name}: problem tensors {nbytes / 1e6:.1f} MB, "
+          f"largest {largest[1]} {tuple(getattr(probs, largest[1]).shape)}; "
+          f"device memory allocated {torch.cuda.memory_allocated() / 1e6:.0f}"
+          f" MB, peak {torch.cuda.max_memory_allocated() / 1e6:.0f} MB")
+
+
+def mG00_matvec_edgewise(p, v):
+    """mG00 v in the edge-wise form (the alternative to the block form
+    `NodeProblem.mG00_matvec` keeps): the intra Laplacian and the inter
+    diagonal 2 w_bar tau through gathers and one index_add_, xi on real
+    poses and 1 on padded ones."""
+    import torch
+    d = v.shape[-1]
+    dv = p.a_tau[..., None] * (p._g(v, p.a_i) - p._g(v, p.a_j))
+    w = (2.0 * p._sw(p.e_tau))[..., None] * p._g(v, p.e_self)
+    out = torch.where(p.pose_mask, p.xi, 1.0).to(v.dtype)[..., None] * v
+    idx = torch.cat([p._fi.view(dv.shape[:2]), p._fj.view(dv.shape[:2]),
+                     p._fs.view(w.shape[:2])], 1).reshape(-1)
+    out.view(-1, d).index_add_(0, idx,
+                               torch.cat([dv, -dv, w], 1).reshape(-1, d))
+    return out
+
+
+def solve_mG00_seg_fixed_trips(p, rhs, x0=None, syncs=None):
+    """`NodeProblem._solve_mG00_seg` as a loop of exactly seg_cg_iters trips
+    that carries the continuation condition as a device flag and reads
+    nothing on the host (the alternative to the host-read loop the package
+    keeps): a node that has converged keeps its state, so the result is
+    the same."""
+    import torch
+
+    from dpgo_tpu_torch.ops.stpcg import sel
+    r_full = p._deflate_null(rhs)
+    rr_ref = (r_full * r_full).sum(1)
+    if x0 is None:
+        x, r = torch.zeros_like(rhs), r_full
+    else:
+        x = p._deflate_null(x0)
+        r = r_full - p._deflate_null(p.mG00_matvec(x))
+    z = p._precondition_t_seg(r)
+    pk, rz = z, (r * z).sum(1)
+    tol2 = p.seg_cg_tol * p.seg_cg_tol
+    for _ in range(p.seg_cg_iters):
+        running = ((r * r).sum(1) > tol2 * rr_ref).any(1)
+        Ap = p._deflate_null(p.mG00_matvec(pk))
+        pAp = (pk * Ap).sum(1)
+        alpha = torch.where(pAp > 0, rz / torch.where(pAp > 0, pAp, 1.0),
+                            0.0)
+        x_new = x + alpha[:, None, :] * pk
+        r_new = r - alpha[:, None, :] * Ap
+        z_new = p._precondition_t_seg(r_new)
+        rz_new = (r_new * z_new).sum(1)
+        beta = torch.where(rz > 0, rz_new / torch.where(rz > 0, rz, 1.0),
+                           0.0)
+        p_new = z_new + beta[:, None, :] * pk
+        x, r, pk = (sel(running, x_new, x), sel(running, r_new, r),
+                    sel(running, p_new, pk))
+        rz = sel(running, rz_new, rz)
+    return x
+
+
+def phase_segment_choices(solver, init, card, steps=25):
+    """The two choices of the segment path, measured on the rim100k solver
+    (proximal only): the block matvec against the edge-wise one, and the
+    host-read CG loop against the fixed-trip one. Each alternative is held
+    to the package's result, timed alone (the matvec), and run in the path
+    in turns (package, alternative, alternative, package; `steps` steps
+    each from the state after 20 steps): it/s and host syncs per step."""
+    import torch
+
+    from dpgo_tpu_torch.problem import NodeProblem
+    from dpgo_tpu_torch.utils import HostSyncs
+    p = solver.probs
+    gen = torch.Generator(device=p.nvec.device).manual_seed(SEED)
+    v = torch.randn(p.nvec.shape, generator=gen, dtype=p.nvec.dtype,
+                    device=p.nvec.device)
+    blk, edge = p.mG00_matvec(v), mG00_matvec_edgewise(p, v)
+    err = float((blk - edge).abs().max() / blk.abs().max())
+    ms_blk = cuda_ms(lambda: p.mG00_matvec(v), 200)
+    ms_edge = cuda_ms(lambda: mG00_matvec_edgewise(p, v), 200)
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (p.seg_diag, p.seg_blk, v, blk))
+    print(f"mG00_matvec at {tuple(v.shape)} [{card}]: block form (kept) "
+          f"{ms_blk:.4f} ms per call ({nbytes / 1e6:.1f} MB of blocks and "
+          f"vectors), edge-wise form {ms_edge:.4f} ms; max relative "
+          f"difference {err:.3e}")
+    check(err <= 1e-4, f"mG00_matvec: block and edge-wise forms differ by "
+          f"{err}")
+
+    rhs = blk
+    x0 = 0.9 * p._deflate_null(v)
+    a = p._solve_mG00_seg(rhs, x0)
+    b = solve_mG00_seg_fixed_trips(p, rhs, x0)
+    cg_err = float((a - b).abs().max() / a.abs().max())
+    print(f"_solve_mG00_seg: host-read loop (kept) against the fixed-trip "
+          f"loop, max relative difference {cg_err:.3e}")
+    check(cg_err <= 1e-4, f"the two CG loops differ by {cg_err}")
+
+    st0, k0 = solver.run_steps(solver.initialize(*init), 0, 20)
+
+    def timed():
+        solver.syncs = HostSyncs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = solver.run_steps(st0, k0, steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (steps / secs, solver.syncs.count / steps,
+                2.0 * float(st.fobj.sum()))
+
+    def in_turns(attr, alt):
+        kept = getattr(NodeProblem, attr)
+        runs = {"kept": [], "alternative": []}
+        try:
+            for which in ("kept", "alternative", "alternative", "kept"):
+                setattr(NodeProblem, attr, alt if which == "alternative"
+                        else kept)
+                runs[which].append(timed())
+        finally:
+            setattr(NodeProblem, attr, kept)
+        return runs
+
+    out = {"matvec_block_ms": ms_blk, "matvec_edgewise_ms": ms_edge,
+           "matvec_rel_diff": err, "cg_rel_diff": cg_err}
+    for label, attr, alt in (
+            ("matvec", "mG00_matvec", mG00_matvec_edgewise),
+            ("cg_loop", "_solve_mG00_seg", solve_mG00_seg_fixed_trips)):
+        runs = in_turns(attr, alt)
+        f_all = [r[2] for rs in runs.values() for r in rs]
+        spread = (max(f_all) - min(f_all)) / abs(f_all[0])
+        print(f"rim100k_prox, {label} in turns (kept, alternative, "
+              f"alternative, kept), {steps} steps each [{card}]: kept "
+              + ", ".join(f"{r[0]:.2f} it/s at {r[1]:.2f} syncs/step"
+                          for r in runs["kept"])
+              + "; alternative "
+              + ", ".join(f"{r[0]:.2f} it/s at {r[1]:.2f} syncs/step"
+                          for r in runs["alternative"])
+              + f"; 2f after the steps within {spread:.3e} of each other")
+        check(spread <= 1e-4, f"{label}: the runs end {spread} apart in 2f")
+        out[label] = {k: [list(r) for r in rs] for k, rs in runs.items()}
+    return out
+
+
+def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
+                      to_profile):
+    """The paths above the dense limit (module docstring, 7): the three
+    rim100k segment paths with the two measured choices, and rim_edgewise.
+    Fills `paths`, `launches` and `to_profile`."""
+    import numpy as np
+    import torch
+
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+    from dpgo_tpu_torch.losses import Loss, loss_weight
+    from dpgo_tpu_torch.objective import edge_sqnorms
+    from dpgo_tpu_torch.solvers.mm import MMOptions, resolve_preconditioner
+    from dpgo_tpu_torch.solvers.tnt import TNTParams
+    from dpgo_tpu_torch.synthetic import with_outliers
+
+    path = ensure_rim100k(root)
+    t0 = time.perf_counter()
+    big = read_g2o_file(path)
+    print(f"rim100k: {RIM100K} read in {time.perf_counter() - t0:.1f} s")
+    refined = MMOptions(accelerated=True)
+    prox = MMOptions(accelerated=True, tnt=TNTParams(max_iterations=0))
+    torch.cuda.reset_peak_memory_stats()
+    solver, init = make_solver(big, f"rim100k: {RIM100K}", opts=refined)
+    check(solver.probs.seg and not solver.probs.dense,
+          "rim100k: the problem is not on the segment path")
+    check_no_dense_block("rim100k", solver.probs, seg=True)
+
+    # Proximal only: the configuration of the JAX bench's rim_synth_100k row.
+    solver_p = copy.copy(solver)
+    solver_p.opts = prox
+    paths["rim100k_prox"], launches["rim100k_prox"], _ = run_path(
+        "rim100k_prox", solver_p, init, ("polar_so3",), card, steps=100,
+        fused=False)
+    print(f"rim100k_prox: 2f after 100 steps "
+          f"{paths['rim100k_prox']['f2_final']:.2f} (exact "
+          f"{paths['rim100k_prox']['f2_exact']:.2f}); the JAX package's "
+          f"bench recorded {RIM100K_JAX_2F_100:.2f} for this configuration "
+          "(reported, not held)")
+    paths["rim100k_prox"]["choices"] = phase_segment_choices(solver_p, init,
+                                                             card)
+    to_profile.append(("rim100k_prox", solver_p, init))
+
+    paths["rim100k_refined"], launches["rim100k_refined"], _ = run_path(
+        "rim100k_refined", solver, init, ("polar_so3",), card, steps=100,
+        fused=False, runs=1)
+    # The proximal path made two runs of the same 100 steps.
+    k2_prox = launches["rim100k_prox"]["polar_so3"] // 2
+    k2_ref = launches["rim100k_refined"]["polar_so3"]
+    stp = paths["rim100k_refined"]["loops"].get("stpcg", [0, 0.0])
+    print(f"rim100k_refined: K2 launches {k2_ref} against the proximal "
+          f"path's {k2_prox} over the same steps; the coupled TNT ran "
+          f"{stp[0]} STPCG solves of {stp[1]:.2f} iterations each")
+    check(k2_ref > k2_prox and stp[0] > 0, "rim100k_refined: the coupled "
+          "TNT did not run")
+    to_profile.append(("rim100k_refined", solver, init))
+
+    # Huber + dynamic rescale on the segment problem.
+    meas_r, bad = with_outliers(big, np.random.default_rng(SEED + 5),
+                                NUM_NODES)
+    opts_r = MMOptions(accelerated=True, rescale="dynamic")
+    solver, init = make_solver(meas_r, f"rim100k_robust: {RIM100K} with "
+                               f"{len(bad)} outlier inter-node edges, Huber, "
+                               "dynamic rescale", opts=opts_r,
+                               loss=Loss.HUBER, loss_reg=LOSS_REG)
+    check(solver.probs.seg, "rim100k_robust: not on the segment path")
+    paths["rim100k_robust"], launches["rim100k_robust"], st = run_path(
+        "rim100k_robust", solver, init, ("polar_so3",), card, steps=60,
+        fused=False, runs=1)
+    check(solver.problems(st).dynamic, "rim100k_robust: the iterate's "
+          "problems are not reweighted")
+    sw_min = float(st.scale_w.min())
+    t, R = solver.gather_global(st)
+    w = loss_weight(Loss.HUBER, edge_sqnorms(solver.edges, t, R), LOSS_REG)
+    is_bad = torch.zeros(len(meas_r), dtype=torch.bool, device=dev)
+    is_bad[torch.as_tensor(bad, device=dev)] = True
+    w_out = float(w[is_bad].mean())
+    w_in = float(w[solver.edges.is_inter & ~is_bad].mean())
+    print(f"rim100k_robust: min scale_w {sw_min:.4g}; mean final Huber "
+          f"weight {w_out:.4g} on the {len(bad)} outliers, {w_in:.4g} on "
+          "the inlier inter-node edges")
+    check(sw_min < 1.0, "rim100k_robust: dynamic rescale never fired")
+    check(w_out < w_in, f"rim100k_robust: outlier weight {w_out} not below "
+          f"inlier weight {w_in}")
+    paths["rim100k_robust"].update(min_scale_w=sw_min, outlier_weight=w_out,
+                                   inlier_weight=w_in)
+    to_profile.append(("rim100k_robust", solver, init))
+    del st
+
+    # rim_synth with 6 nodes: above dense_limit, under segment_limit.
+    solver, init = make_solver(rim, f"rim_edgewise: {DATASET}",
+                               num_nodes=EDGEWISE_NODES, opts=refined)
+    check(not solver.probs.dense and not solver.probs.seg,
+          "rim_edgewise: the problem is not on the edge-wise path")
+    check(resolve_preconditioner(solver.probs, solver.opts) == "jacobi",
+          "rim_edgewise: the preconditioner did not resolve to jacobi")
+    check_no_dense_block("rim_edgewise", solver.probs, seg=False)
+    paths["rim_edgewise"], launches["rim_edgewise"], _ = run_path(
+        "rim_edgewise", solver, init, ("polar_so3",), card, fused=False,
+        runs=1)
+    to_profile.append(("rim_edgewise", solver, init))
 
 
 def main() -> int:
@@ -680,13 +1023,16 @@ def main() -> int:
     print(f"kernel build and load: {time.perf_counter() - t0:.2f} s")
 
     k2 = phase_polar_so3(np.random.default_rng(SEED), dev, card)
+    k2_100k = phase_polar_so3(np.random.default_rng(SEED + 6), dev, card,
+                              n=NUM_NODES * 6400)
     k2_f64 = phase_polar_so3_f64(np.random.default_rng(SEED + 4), dev, card)
     # The manhattan graph's .g2o file and the CLI's working directory.
     work = tempfile.TemporaryDirectory()
 
-    def make_solver(meas, label, cls=DPGOSolver, init=None, **kw):
+    def make_solver(meas, label, cls=DPGOSolver, init=None,
+                    num_nodes=NUM_NODES, **kw):
         t0 = time.perf_counter()
-        solver = cls(meas, num_nodes=NUM_NODES, dtype=torch.float32,
+        solver = cls(meas, num_nodes=num_nodes, dtype=torch.float32,
                      device=dev, **kw)
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
@@ -694,7 +1040,7 @@ def main() -> int:
             R0 = chordal_initialization(meas)
             init = (recover_translations_global(meas, R0), R0)
         print(f"{label}: {meas.num_poses} poses, {len(meas)} edges, "
-              f"{NUM_NODES} nodes x {solver.mg.n0_max} poses, d = {meas.d}, "
+              f"{num_nodes} nodes x {solver.mg.n0_max} poses, d = {meas.d}, "
               f"float32; problem build {t_build:.1f} s, with chordal init "
               f"{time.perf_counter() - t0:.1f} s")
         return solver, init
@@ -940,9 +1286,20 @@ def main() -> int:
         os.chdir(here)
     work.cleanup()
 
-    # torch.profiler runs only now, after every timed run.
+    # Path 7: node blocks above the dense limit.
+    del solver
+    large_block_paths(root, dev, card, make_solver, rim, paths, launches,
+                      to_profile)
+
+    # torch.profiler runs only now, after every timed run. The paths above
+    # the dense limit make thousands of launches per step, and the profiler
+    # takes seconds per thousand: shorter windows there.
+    windows = {"rim100k_prox": (50, 10), "rim100k_refined": (20, 3),
+               "rim100k_robust": (20, 3), "rim_edgewise": (50, 5)}
     for name, solver, init in to_profile:
-        paths[name]["profile"] = profile_path(name, solver, init, card)
+        at, steps = windows.get(name, (PROFILE_AT, PROFILE_STEPS))
+        paths[name]["profile"] = profile_path(name, solver, init, card, at,
+                                              steps)
     del to_profile, solver
     paths["mm_dchordal"]["dchordal_profile"] = profile_dchordal(rim, dev,
                                                                 card)
@@ -960,12 +1317,16 @@ def main() -> int:
                 "bound_by": stats["bound_by"],
                 "library_ms": stats["library_ms"],
                 "launches_by_path": {p: c[name]
-                                     for p, c in launches.items()}}
+                                     for p, c in launches.items()},
+                **{k: v for k, v in stats.items() if k == "shapes"}}
 
     k1_d3 = dict(k1["rim"], max_abs_err=max(k1["rim"]["max_abs_err"],
                                             k1["robust"]["max_abs_err"]))
     k1_d2 = dict(k1["manhattan"], max_abs_err=max(
         k1["manhattan"]["max_abs_err"], k1["manhattan_far"]["max_abs_err"]))
+    # K2's float32 entry carries its times at both projection batches.
+    k2 = dict(k2, max_abs_err=max(k2["max_abs_err"], k2_100k["max_abs_err"]),
+              shapes={"[10240, 3, 3]": k2, "[102400, 3, 3]": k2_100k})
     kernels = [
         entry("polar_so3", "dpgo_tpu_torch/csrc/polar_so3.cu",
               "dpgo_tpu/ops/pallas_so3.py:70", k2),

@@ -48,7 +48,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--accelerated", type=_bool, default=True)
     ap.add_argument("--preconditioner", default=None,
                     choices=["none", "jacobi", "dense"],
-                    help="STPCG preconditioner (default: dense)")
+                    help="STPCG preconditioner (default: dense on the "
+                         "dense operator path, jacobi off it)")
     ap.add_argument("--accepted_delta", type=float, default=5e-4,
                     help="TNT refinement gate")
     ap.add_argument("--solver", default="hash", choices=["hash", "star"])

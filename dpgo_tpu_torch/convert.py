@@ -5,10 +5,11 @@ the leaves of a dpgo_tpu `NodeProblem` / `MMState` / `StarState` as numpy
 arrays keyed by field name (the node-stacked pytrees converted with
 `np.asarray`) and build the port's counterparts on `device` (named by the
 caller: the tests carry the JAX package's state to the CPU), so both
-packages can start from one state. Dense problems at d = 2 and 3 are taken,
-reweighted (dynamic) ones included, with the block-Jacobi preconditioner
-`precon_inv`. Fields the port does not carry (fused-kernel panels, the
-one-hot scatter, segment path, Anderson history) are ignored.
+packages can start from one state. Dense, edge-wise and segment problems at
+d = 2 and 3 are taken, reweighted (dynamic) ones included; a field a regime
+does not build is the JAX package's [N, 1, 1] placeholder in both. Fields
+the port does not carry (fused-kernel panels, the one-hot scatter, Anderson
+history) are ignored.
 """
 
 from __future__ import annotations
@@ -38,14 +39,18 @@ def problem_from_numpy(arrays: dict, device,
 
     `arrays` holds every array field of the port's NodeProblem plus the
     static fields d, xi, loss (a Loss of either package, or its value
-    string), loss_reg, dense and dynamic."""
-    if not bool(arrays["dense"]) or bool(arrays.get("seg", False)):
-        raise NotImplementedError("only the dense operator path is ported")
+    string), loss_reg, dense, dynamic, seg, seg_size, seg_cg_iters and
+    seg_cg_tol."""
     loss = arrays["loss"]
     loss = Loss(getattr(loss, "value", loss))
     return make_problem(arrays, d=int(arrays["d"]), xi=float(arrays["xi"]),
                         loss=loss, loss_reg=float(arrays["loss_reg"]),
-                        dense=True, dynamic=bool(arrays["dynamic"]),
+                        dense=bool(arrays["dense"]),
+                        dynamic=bool(arrays["dynamic"]),
+                        seg=bool(arrays["seg"]),
+                        seg_size=int(arrays["seg_size"]),
+                        seg_cg_iters=int(arrays["seg_cg_iters"]),
+                        seg_cg_tol=float(arrays["seg_cg_tol"]),
                         device=device, dtype=dtype)
 
 

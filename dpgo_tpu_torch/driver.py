@@ -39,11 +39,13 @@ def communicate(st: MMState, halo_owner, halo_lpose, halo_dc=None) -> MMState:
 class DPGOSolver:
     """Distributed PGO on one device: batched node axis, eager step.
 
-    Ported scope: MM-PGO and AMM-PGO#, dense per-node operators, d = 2 and
-    3, every loss kernel with static or dynamic rescale, the three STPCG
-    preconditioners, centralized chordal or distributed (DChordal)
-    initialization. Runs on the CUDA card unless `device` names another
-    (`device="cpu"`). A problem copy with
+    Ported scope: MM-PGO and AMM-PGO#, node blocks of any size (n0 d up to
+    `dense_limit` on the dense operator path, up to `segment_limit` poses
+    edge-wise, above that the segment path with segments of `seg_size`
+    poses; see problem.py), d = 2 and 3, every loss kernel with static or
+    dynamic rescale, the three STPCG preconditioners, centralized chordal
+    or distributed (DChordal) initialization. Runs on the CUDA card unless
+    `device` names another (`device="cpu"`). A problem copy with
     `dataclasses.replace(solver.probs, kernels=False)` runs the plain torch
     versions of the two CUDA kernels on any device."""
 
@@ -51,7 +53,8 @@ class DPGOSolver:
                  opts: MMOptions | None = None,
                  loss: Loss = Loss.TRIVIAL, loss_reg: float = 1.0,
                  dtype=torch.float64, device=None,
-                 dense_limit: int = 4096, segment_limit: int = 2048):
+                 dense_limit: int = 4096, segment_limit: int = 2048,
+                 seg_size: int = 128):
         self.meas = meas
         self.num_nodes = num_nodes
         self.opts = opts or MMOptions()
@@ -64,7 +67,8 @@ class DPGOSolver:
         self.probs = build_node_problems(
             self.mg, xi=self.opts.regularizer, loss=loss, loss_reg=loss_reg,
             precon_cond=precon_cond, dense_limit=dense_limit,
-            segment_limit=segment_limit, dtype=dtype, device=self.device)
+            segment_limit=segment_limit, seg_size=seg_size, dtype=dtype,
+            device=self.device)
         self.edges = EdgeData.from_measurements(
             meas, node_of=self.part.node_of, dtype=dtype, device=self.device)
         self.loss = loss

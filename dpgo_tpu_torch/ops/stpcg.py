@@ -32,14 +32,37 @@ def _bshape(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * (ref.dim() - 1))
 
 
-def ip(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Per-lane Frobenius inner product: [N, ...] x [N, ...] -> [N]."""
+def ip(a, b) -> torch.Tensor:
+    """Per-lane Frobenius inner product: [N, ...] x [N, ...] -> [N]; of a
+    tuple of such tensors (the coupled (t, R) tangents), the sum over its
+    parts."""
+    if isinstance(a, tuple):
+        return sum(ip(x, y) for x, y in zip(a, b))
     return (a * b).reshape(a.shape[0], -1).sum(1)
 
 
-def sel(pred: torch.Tensor, a: torch.Tensor, b: torch.Tensor
-        ) -> torch.Tensor:
+def sel(pred: torch.Tensor, a, b):
+    """Per lane: a where pred [N], else b (tensors or tuples of them)."""
+    if isinstance(a, tuple):
+        return tuple(sel(pred, x, y) for x, y in zip(a, b))
     return torch.where(_bshape(pred, a), a, b)
+
+
+def axpy(alpha: torch.Tensor, x, y):
+    """y + alpha x with a per-lane alpha [N] (tensors or tuples of them)."""
+    if isinstance(x, tuple):
+        return tuple(axpy(alpha, u, v) for u, v in zip(x, y))
+    return y + _bshape(alpha, x) * x
+
+
+def _neg(x):
+    return tuple(-u for u in x) if isinstance(x, tuple) else -x
+
+
+def _zeros_like(x):
+    if isinstance(x, tuple):
+        return tuple(torch.zeros_like(u) for u in x)
+    return torch.zeros_like(x)
 
 
 def stpcg_target(g: torch.Tensor, v0: torch.Tensor, kappa_fgr: float,
@@ -49,11 +72,12 @@ def stpcg_target(g: torch.Tensor, v0: torch.Tensor, kappa_fgr: float,
     return r0_norm * torch.clamp(r0_norm ** theta, max=kappa_fgr)
 
 
-def stpcg_loop(grad: torch.Tensor, hess_vp: Callable, precon: Callable,
-               v0: torch.Tensor, Delta: torch.Tensor, target: torch.Tensor,
+def stpcg_loop(grad, hess_vp: Callable, precon: Callable,
+               v0, Delta: torch.Tensor, target: torch.Tensor,
                active: torch.Tensor | None, max_iters: int,
                syncs: HostSyncs | None = None):
-    """Batched STPCG from r = grad, v = v0 = precon(grad).
+    """Batched STPCG from r = grad, v = v0 = precon(grad); tangents are
+    [N, ...] tensors or tuples of them.
 
     Returns (step, H step, step M-norm, iterations) per lane."""
     syncs = syncs or HostSyncs()
@@ -62,22 +86,24 @@ def stpcg_loop(grad: torch.Tensor, hess_vp: Callable, precon: Callable,
     r0_norm = torch.sqrt(r0v0)
     Delta2 = Delta * Delta
 
-    s = torch.zeros_like(grad)
-    Hs = torch.zeros_like(grad)
-    r, v, p = grad, v0, -v0
+    s = _zeros_like(grad)
+    Hs = _zeros_like(grad)
+    r, v, p = grad, v0, _neg(v0)
     sk_M_pk = torch.zeros_like(r0v0)
     sk_M_2 = torch.zeros_like(r0v0)
     pk_M_2 = r0v0
-    k = torch.zeros(grad.shape[0], dtype=torch.int32, device=grad.device)
+    k = torch.zeros_like(r0v0, dtype=torch.int32)
     done = (r0_norm <= target) | (r0_norm == 0.0)
     if active is not None:
         done = done | ~active
     norm_out = torch.zeros_like(r0v0)
+    trips = 0
 
     while True:
         running = ~done & (k < max_iters)
         if not syncs.flag(running.any()):
             break
+        trips += 1
         Hp = hess_vp(p)
         kappa_k = ip(p, Hp)
         p_norm = torch.sqrt(ip(p, p))
@@ -91,28 +117,27 @@ def stpcg_loop(grad: torch.Tensor, hess_vp: Callable, precon: Callable,
         # Kernel exit: follow p (sign-fixed to descent) to the boundary.
         p_desc = torch.where(ip(p, r) < 0, -1.0, 1.0).to(r0v0.dtype)
         sig_k = sigma_of(sk_M_pk * p_desc) * p_desc
-        s_kernel = s + _bshape(sig_k, s) * p
-        Hs_kernel = Hs + _bshape(sig_k, s) * Hp
+        s_kernel = axpy(sig_k, p, s)
+        Hs_kernel = axpy(sig_k, Hp, Hs)
 
         rv = ip(r, v)
         alpha = rv / kappa_k
         sk1_M_2 = sk_M_2 + 2 * alpha * sk_M_pk + alpha * alpha * pk_M_2
         bad = (kappa_k <= 0) | (sk1_M_2 > Delta2)
         sig_b = sigma_of(sk_M_pk)
-        s_boundary = s + _bshape(sig_b, s) * p
-        Hs_boundary = Hs + _bshape(sig_b, s) * Hp
+        s_boundary = axpy(sig_b, p, s)
+        Hs_boundary = axpy(sig_b, Hp, Hs)
 
         # Interior CG update.
-        a_ = _bshape(alpha, s)
-        s_new = s + a_ * p
-        Hs_new = Hs + a_ * Hp
-        r_new = r + a_ * Hp
+        s_new = axpy(alpha, p, s)
+        Hs_new = axpy(alpha, Hp, Hs)
+        r_new = axpy(alpha, Hp, r)
         v_new = precon(r_new)
         rv_new = ip(r_new, v_new)
         beta = rv_new / (alpha * kappa_k)
         sk_M_pk_new = beta * (sk_M_pk + alpha * pk_M_2)
         pk_M_2_new = rv_new + beta * beta * pk_M_2
-        p_new = -v_new + _bshape(beta, s) * p
+        p_new = axpy(beta, p, _neg(v_new))
         interior_done = torch.sqrt(rv_new) <= target
 
         exit_b = in_kernel | bad
@@ -133,6 +158,7 @@ def stpcg_loop(grad: torch.Tensor, hess_vp: Callable, precon: Callable,
         done = torch.where(running, exit_b | interior_done, done)
         norm_out = torch.where(running & exit_b, Delta, norm_out)
 
+    syncs.note("stpcg", trips)
     norm = torch.where(norm_out > 0, norm_out, torch.sqrt(sk_M_2))
     return s, Hs, norm, k
 

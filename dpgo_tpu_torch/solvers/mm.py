@@ -12,11 +12,14 @@ over the node axis (torch port of dpgo_tpu/solvers/mm.py).
   update and iterate on the problems reweighted by the state's persisted
   weights (`with_weights`).
 
-The TNT refinement runs the dense model with the preconditioner the options
-name ("dense", "jacobi" or "none"); kernel K1 takes its trust-region
-subproblem under "dense" only, the torch `stpcg` otherwise, as the JAX
-package runs its XLA CG there. `_make_tnt_model` is the edge-wise R-space
-model with the block-Jacobi preconditioner (DChordal's stage 0).
+The TNT refinement follows the problems' regime (`_tnt_batch`): on the dense
+path the dense model with the preconditioner the options name ("dense",
+"jacobi" or "none"), where kernel K1 takes the trust-region subproblem under
+"dense" and the torch `stpcg` otherwise, as the JAX package runs its XLA CG
+there; on the edge-wise path `_make_tnt_model`, the R-space model with the
+block-Jacobi preconditioner (also DChordal's stage 0); on the segment path
+`_make_tnt_model_coupled`, the coupled (t, R) model with the segment
+preconditioners.
 
 Control flow: where the JAX package branches on the device (`lax.cond` on
 `jnp.any(mask)`), this port reads the flag on the host through a
@@ -31,7 +34,8 @@ import dataclasses
 import torch
 
 from dpgo_tpu_torch.losses import Loss
-from dpgo_tpu_torch.manifold import proj_tangent, project_sod
+from dpgo_tpu_torch.manifold import (proj_tangent, project_sod,
+                                     sym_block_diag_product)
 from dpgo_tpu_torch.ops.stpcg import sel, stpcg_fused_reference
 from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
 from dpgo_tpu_torch.problem import NodeProblem, NodeState, _nsum, with_weights
@@ -61,8 +65,9 @@ class MMOptions:
     # Local gauge centering (driver). None = on in f32, off in f64.
     local_gauge: bool | None = None
     # STPCG preconditioner: "none" | "jacobi" (block-Jacobi of mG11) |
-    # "dense" (the regularized reduced-Hessian inverse). None = "dense" (the
-    # port's problems are all on the dense operator path).
+    # "dense" (the regularized reduced-Hessian inverse). None = "dense" on
+    # the dense operator path, "jacobi" on the edge-wise path; the segment
+    # path's coupled model has its own segment preconditioners.
     preconditioner: str | None = None
     eta0: float = 5e-4
     eta1: float = 2.5e-2
@@ -168,8 +173,6 @@ def _check_supported(probs: NodeProblem, opts: MMOptions):
                                   "not ported")
     if scheme not in ("amm", "mm"):
         raise ValueError(f"unknown scheme {scheme!r}")
-    if not probs.dense:
-        raise NotImplementedError("only the dense operator path is ported")
 
 
 def _dynamic(probs: NodeProblem, opts: MMOptions) -> bool:
@@ -299,7 +302,8 @@ def update_state(probs: NodeProblem, st: MMState, opts: MMOptions,
 
 
 def _make_tnt_model(p: NodeProblem, g_t, g_R, f, t_anchor=None,
-                    precon: str = "jacobi", anchor=None) -> TNTModel:
+                    precon: str = "jacobi", anchor=None,
+                    syncs: HostSyncs | None = None) -> TNTModel:
     """Edge-wise TNT model in R-space (variable (t, R [N, n, d, d])), the
     translations eliminated through the split inverse; preconditioned by
     the block-Jacobi blocks (or not at all under "none").
@@ -334,7 +338,51 @@ def _make_tnt_model(p: NodeProblem, g_t, g_R, f, t_anchor=None,
 
     def retract(x, h):
         R_new = project_sod(x[1] + h, p.kernels)
-        return p.recover_translations(R_new, g_t, t_anchor), R_new
+        return p.recover_translations(R_new, g_t, t_anchor, syncs), R_new
+
+    return TNTModel(objective=objective, grad_and_nabla=grad_and_nabla,
+                    hess_vp=hess_vp, precondition=precondition,
+                    retract=retract)
+
+
+def _make_tnt_model_coupled(p: NodeProblem, g_t, g_R, anchor) -> TNTModel:
+    """Coupled (t, R) TNT model of the segment path; tangents are (t, R)
+    pairs.
+
+    The reduced (t-eliminated) model's Hessian-vector product needs one
+    mG00 solve per STPCG iteration, which on the segment path would nest CG
+    inside CG. The surrogate G is an exact quadratic in (t, R), so refining
+    the coupled variable makes the product one edge-wise G_apply (no solve)
+    with the same surrogate decrease guarantee (the trust-region acceptance
+    still evaluates the true G). Preconditioner: the two-level segment
+    Schwarz for t, the segment-dense regularized mG11 inverses for R.
+
+    `anchor` = (z_t, z_R, fobj): the objective is the f32-stable relative
+    form against the MM anchor (evaluate_G_rel)."""
+    z_t, z_R, fobj = anchor
+    zres = p.anchor_residuals(z_t, z_R)
+
+    def objective(x):
+        return p.evaluate_G_rel(z_t, z_R, x[0], x[1], (g_t, g_R), fobj,
+                                zres=zres)
+
+    def grad_and_nabla(x):
+        Gt, GR = p.G_apply(x[0], x[1])
+        nt, nR = Gt + g_t, GR + g_R
+        return (nt, proj_tangent(x[1], nR)), (nt, nR)
+
+    def hess_vp(x, nabla, v):
+        # G is linear, so G_apply(v) is the Euclidean Hessian action.
+        Ht, HR = p.G_apply(v[0], v[1])
+        HR = HR - sym_block_diag_product(v[1], x[1], nabla[1])
+        return Ht, proj_tangent(x[1], HR)
+
+    def precondition(x, v):
+        return (p._precondition_t_seg(v[0]),
+                proj_tangent(x[1], p.precondition_R_seg(v[1])))
+
+    def retract(x, h):
+        return x[0] + h[0], project_sod(x[1] + h[1], p.kernels)
 
     return TNTModel(objective=objective, grad_and_nabla=grad_and_nabla,
                     hess_vp=hess_vp, precondition=precondition,
@@ -350,6 +398,7 @@ def _make_tnt_model_dense(p: NodeProblem, g_t, g_Q, t_anchor, anchor,
 
     `anchor` = (z_t, z_Q, fobj): the objective is the f32-stable relative
     form against the MM anchor (evaluate_G_tall_rel)."""
+    p._dense_only("the dense TNT model")
     z_t, z_Q, fobj = anchor
 
     def objective(x):
@@ -411,6 +460,7 @@ def stpcg_inputs(p: NodeProblem, st: MMState):
     grad, Q, S) for every node of problems `p` at the anchor of state `st`,
     built as the dense TNT model builds them; for holding the kernel against
     its plain version at a solver's shapes."""
+    p._dense_only("stpcg_inputs")
     Q = p.to_tall(st.Z.R).contiguous()
     nabla = p.reduced_grad_tall(st.Z.t, Q, p.to_tall(st.g_R))
     grad = p.proj_tall(Q, nabla).contiguous()
@@ -420,7 +470,8 @@ def stpcg_inputs(p: NodeProblem, st: MMState):
 
 
 def resolve_preconditioner(probs: NodeProblem, opts: MMOptions) -> str:
-    """The STPCG preconditioner the options name ("dense" when None)."""
+    """The STPCG preconditioner the options name; None is "dense" on the
+    dense operator path and "jacobi" off it."""
     kind = opts.preconditioner
     if kind is None:
         return "dense" if probs.dense else "jacobi"
@@ -435,13 +486,24 @@ def resolve_preconditioner(probs: NodeProblem, opts: MMOptions) -> str:
 def _tnt_batch(probs: NodeProblem, t0, R0, g_t, g_R, params: TNTParams,
                t_anchor, anchor, precon: str = "dense",
                syncs: HostSyncs | None = None, lanes=None):
-    """Batched TNT on the dense path; returns (t, R, G value at result)."""
-    anchor = (anchor[0], probs.to_tall(anchor[1]), anchor[2])
-    model = _make_tnt_model_dense(probs, g_t, probs.to_tall(g_R), t_anchor,
-                                  anchor, params, precon=precon, syncs=syncs)
-    x, fx, _, _ = tnt_generic(model, (t0, probs.to_tall(R0)), params,
-                              syncs=syncs, lanes=lanes)
-    return x[0], probs.from_tall(x[1]), fx
+    """Batched TNT with the model of the problems' regime (dense, coupled
+    on the segment path, else R-space); returns (t, R, G value at result)."""
+    if probs.dense:
+        anchor = (anchor[0], probs.to_tall(anchor[1]), anchor[2])
+        model = _make_tnt_model_dense(probs, g_t, probs.to_tall(g_R),
+                                      t_anchor, anchor, params, precon=precon,
+                                      syncs=syncs)
+        x, fx, _, _ = tnt_generic(model, (t0, probs.to_tall(R0)), params,
+                                  syncs=syncs, lanes=lanes)
+        return x[0], probs.from_tall(x[1]), fx
+    if probs.seg:
+        model = _make_tnt_model_coupled(probs, g_t, g_R, anchor)
+    else:
+        model = _make_tnt_model(probs, g_t, g_R, None, t_anchor, precon,
+                                anchor=anchor, syncs=syncs)
+    x, fx, _, _ = tnt_generic(model, (t0, R0), params, syncs=syncs,
+                              lanes=lanes)
+    return x[0], x[1], fx
 
 
 def _masked_tnt(probs, t0, R0, g_t, g_R, mask, params: TNTParams,
@@ -528,7 +590,7 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
 
     # Candidate Xak: proximal rotations + translations re-solved with the
     # extrapolated g.
-    t_c = probs.recover_translations(th_R, g_t_ex, Y.t)
+    t_c = probs.recover_translations(th_R, g_t_ex, Y.t, syncs)
     if tnt_off:
         # Xakh and Xak share rotations: one fused pair evaluation.
         Gkh, Gk = _eval_G_pair_batch(probs, st, th_t, t_c, th_R, zres)
@@ -567,7 +629,7 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
         tp_t, tp_R = probs.proximal(st.Z, (st.Df_t, st.Df_R))
         good = Gkh2 <= st.fobj
         r_R = sel(good, Xakh_R, tp_R)
-        r_t = probs.recover_translations(r_R, st.g_t, st.Z.t)
+        r_t = probs.recover_translations(r_R, st.g_t, st.Z.t, syncs)
         r_G = _eval_G_batch(probs, st, r_t, r_R, zres)
         # Nodes with restart & refined get TNT refinement; restart &
         # ~refined keep the evaluated proximal value.
@@ -587,7 +649,7 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
     if syncs.flag(use_h.any()):
         g_sel_t = sel(restart, st.g_t, g_t_ex)
         t_sel = sel(restart, st.Z.t, Y.t)
-        phi_t = probs.recover_translations(Xakh_R, g_sel_t, t_sel)
+        phi_t = probs.recover_translations(Xakh_R, g_sel_t, t_sel, syncs)
         Xak_t2 = sel(use_h, phi_t, Xk_t2)
         Xak_R2 = sel(use_h, Xakh_R, Xk_R2)
         Gk_f = torch.where(use_h,
@@ -617,7 +679,7 @@ def iterate_mm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
         refined = torch.zeros_like(refined)
 
     th_t, th_R = probs.proximal(st.Z, (st.Df_t, st.Df_R))
-    t_c = probs.recover_translations(th_R, st.g_t, st.Z.t)
+    t_c = probs.recover_translations(th_R, st.g_t, st.Z.t, syncs)
     zres = _anchor_residuals_batch(probs, st)
     G0 = _eval_G_batch(probs, st, t_c, th_R, zres)
     Xak_t, Xak_R, _ = _masked_tnt(probs, t_c, th_R, st.g_t, st.g_R, refined,

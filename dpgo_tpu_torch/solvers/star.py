@@ -147,7 +147,7 @@ def iterate_star(probs: NodeProblem, st: StarState, opts: MMOptions,
 
     # amm_pgo_n: proximal candidate Xkh + refined candidate Xkp.
     Xh_t, Xh_R = probs.proximal(Y, (Df_t_ex, Df_R_ex))
-    tp = probs.recover_translations(Xh_R, g_t_ex, Y.t)
+    tp = probs.recover_translations(Xh_R, g_t_ex, Y.t, syncs)
     G0 = _eval_G_batch(probs, st, tp, Xh_R, zres)
     Xp_t, Xp_R, _ = _masked_tnt(probs, tp, Xh_R, g_t_ex, g_R_ex, refined,
                                 opts.tnt, G0, syncs, t_anchor=Y.t,
@@ -174,7 +174,7 @@ def iterate_star(probs: NodeProblem, st: StarState, opts: MMOptions,
     s_next = st.s_next
     if syncs.flag(fobj > st.F - opts.psi * sqdiff(Xp_t, Xp_R)):
         hit("mm")
-        t2 = probs.recover_translations(Xh_R, st.g_t, st.Z.t)
+        t2 = probs.recover_translations(Xh_R, st.g_t, st.Z.t, syncs)
         G2 = _eval_G_batch(probs, st, t2, Xh_R, zres)
         Xp_t, Xp_R, _ = _masked_tnt(probs, t2, Xh_R, st.g_t, st.g_R, refined,
                                     opts.tnt, G2, syncs, t_anchor=st.Z.t,
@@ -185,7 +185,7 @@ def iterate_star(probs: NodeProblem, st: StarState, opts: MMOptions,
     # phi-test: adopt the proximal rotations + re-solved translations.
     if syncs.flag((st.F - fobj) < opts.phi * (st.F - fobjh)):
         hit("phi")
-        Xp_t = probs.recover_translations(Xh_R, st.g_t, st.Z.t)
+        Xp_t = probs.recover_translations(Xh_R, st.g_t, st.Z.t, syncs)
         Xp_R = Xh_R
         fobj = global_f_fn(Xp_t, Xp_R)
 

@@ -4,10 +4,11 @@ dpgo_tpu/solvers/tnt.py).
 
 The JAX package runs one node's TNT as `lax.while_loop`s and vmaps it over the
 node axis. Here every quantity carries the node axis N: the variable is a
-tuple of [N, ...] tensors, tangent vectors are [N, ...] tensors, and scalars
-are [N] tensors. Each lane stops on its own condition and keeps its state
-after that (the vmapped while_loop's semantics); the loops run in Python and
-read their continuation flag on the host once per trip (`HostSyncs`).
+tuple of [N, ...] tensors, tangent vectors are [N, ...] tensors (or, for the
+coupled (t, R) model, tuples of them), and scalars are [N] tensors. Each lane
+stops on its own condition and keeps its state after that (the vmapped
+while_loop's semantics); the loops run in Python and read their continuation
+flag on the host once per trip (`HostSyncs`).
 """
 
 from __future__ import annotations
@@ -85,10 +86,6 @@ def stpcg(grad, hess_vp, precon, Delta, params: TNTParams, v0,
                       params.max_tCG_iterations, syncs)
 
 
-def _sel_x(pred, a: tuple, b: tuple) -> tuple:
-    return tuple(sel(pred, x, y) for x, y in zip(a, b))
-
-
 @dataclasses.dataclass
 class TNTState:
     x: tuple
@@ -106,7 +103,7 @@ class TNTState:
     def select(self, pred: torch.Tensor, other: "TNTState") -> "TNTState":
         """Per lane: self where pred, else other."""
         return TNTState(
-            x=_sel_x(pred, self.x, other.x),
+            x=sel(pred, self.x, other.x),
             fx=torch.where(pred, self.fx, other.fx),
             grad=sel(pred, self.grad, other.grad),
             nabla=sel(pred, self.nabla, other.nabla),
@@ -195,7 +192,7 @@ def tnt_generic(model: TNTModel, x0: tuple, params: TNTParams,
 
         # Derivatives of the accepted point are refreshed at the start of
         # the next iteration (body), never here.
-        x_new = _sel_x(step_ok, x_prop, st.x)
+        x_new = sel(step_ok, x_prop, st.x)
         fx_new = torch.where(step_ok, fx_prop, st.fx)
 
         stop_rel = step_ok & (rel_decrease
@@ -213,7 +210,7 @@ def tnt_generic(model: TNTModel, x0: tuple, params: TNTParams,
         took = keep & step_ok
         done = grad_small | stop_rel | stop_step | stop_delta
         return TNTState(
-            x=_sel_x(keep, x_new, st.x),
+            x=sel(keep, x_new, st.x),
             fx=torch.where(keep, fx_new, st.fx),
             grad=st.grad, nabla=st.nabla, pgrad=st.pgrad,
             gradnorm=st.gradnorm, pgradnorm=st.pgradnorm,

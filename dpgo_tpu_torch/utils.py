@@ -24,11 +24,21 @@ class HostSyncs:
     `lax.cond`, `lax.while_loop`). This port reads those loop and branch
     flags on the host instead (`if syncs.flag(mask.any()):`); each read waits
     for the device. The solver owns one counter and reports syncs per step.
+
+    `loops` holds, per host-driven loop that reports to it by name
+    ("seg_cg": the segment path's translation CG, "stpcg": the torch STPCG),
+    [times entered, trips in all].
     """
 
     def __init__(self):
         self.count = 0
+        self.loops: dict[str, list[int]] = {}
 
     def flag(self, x: torch.Tensor) -> bool:
         self.count += 1
         return bool(x)
+
+    def note(self, loop: str, trips: int) -> None:
+        entry = self.loops.setdefault(loop, [0, 0])
+        entry[0] += 1
+        entry[1] += trips

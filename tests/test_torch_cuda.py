@@ -409,3 +409,94 @@ def test_dchordal_kernels_match_plain(dev):
     np.testing.assert_allclose(f, fp, rtol=1e-4)
     RtR = np.einsum("nki,nkj->nij", R.astype(np.float64), R)
     assert np.abs(RtR - np.eye(3)).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_polar_so3_kernel_at_100k_matrices(dev, rng):
+    """K2 at [102400, 3, 3] float32, the projection batch of a 102,400-pose
+    graph (16 nodes x 6,400 poses), within 1e-5 of its plain version."""
+    from dpgo_tpu_torch.ops.polar_so3_cuda import polar_so3_cuda
+    from dpgo_tpu_torch.ops.so3 import polar_so3
+    from dpgo_tpu_torch.synthetic import random_rotations
+
+    n = 102400
+    sigma = np.array([1.0, 2.0, 3.5]) + rng.uniform(0, 0.5, size=(n, 3))
+    A = random_rotations(rng, n) @ (
+        sigma[:, :, None] * random_rotations(rng, n).transpose(0, 2, 1))
+    A[::5] *= -1.0
+    At = torch.tensor(A, dtype=torch.float32, device=dev)
+    R = polar_so3_cuda(At)
+    assert R.shape == (n, 3, 3)
+    np.testing.assert_allclose(R.cpu().numpy(), polar_so3(At).cpu().numpy(),
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["segment", "edgewise"])
+def test_large_block_paths_kernels_match_plain(dev, path):
+    """A forced-segment (segment_limit=32, seg_size=32) and a forced
+    edge-wise (dense_limit=0) float32 solver on artifacts/grid3D_synth.g2o
+    with 4 nodes (128 poses per node): 20 refined steps through K2 agree
+    with the same run through its plain version (per-step 2f within rtol
+    1e-4); K2 launched, K1 never (it is built for dense blocks only)."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    kw = (dict(segment_limit=32, seg_size=32) if path == "segment"
+          else dict(dense_limit=0))
+    s = DPGOSolver(_grid3d(), num_nodes=4, dtype=torch.float32, device=dev,
+                   **kw)
+    assert s.probs.seg == (path == "segment") and not s.probs.dense
+    assert not s.fused_stpcg_engaged()
+    k1, k2 = stpcg_cuda.Launches.count, polar_so3_cuda.Launches.count
+    _, _, (f, _) = s.run_steps_history(s.initialize(), 0, 20)
+    assert stpcg_cuda.Launches.count == k1
+    assert polar_so3_cuda.Launches.count > k2
+    assert s.syncs.loops["stpcg"][1] > 0  # the torch STPCG refined
+    s.probs = dataclasses.replace(s.probs, kernels=False)
+    s.syncs = HostSyncs()
+    k2 = polar_so3_cuda.Launches.count
+    _, _, (fp, _) = s.run_steps_history(s.initialize(), 0, 20)
+    assert polar_so3_cuda.Launches.count == k2
+    f = f.cpu().numpy()
+    assert np.isfinite(f).all() and f[-1] < f[0]
+    np.testing.assert_allclose(f, fp.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_forced_segment_matches_dense_path_at_real_scale(dev):
+    """artifacts/rim_synth.g2o (10,240 poses) with 16 nodes in float64,
+    refinement off: the segment path forced with segment_limit=256 (640
+    poses per node, 5 segments of 128) tracks the dense path. The segment
+    path's only inexactness is the translation CG (tolerance 1e-7, 20
+    trips), so the exact global 2f agrees within 1e-6 relative after 50
+    steps and the mG00 matvec equals the dense mG00_d within 1e-12 of its
+    largest entry."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    from dpgo_tpu_torch.solvers.tnt import TNTParams
+
+    meas = read_g2o_file(os.path.join(REPO, "artifacts", "rim_synth.g2o"))
+    opts = MMOptions(accelerated=True, tnt=TNTParams(max_iterations=0))
+    dense = DPGOSolver(meas, num_nodes=16, opts=opts, device=dev)
+    seg = DPGOSolver(meas, num_nodes=16, opts=opts, device=dev,
+                     segment_limit=256)
+    assert dense.probs.dense and seg.probs.seg
+    assert tuple(seg.probs.seg_t_inv.shape) == (16, 5, 128, 128)
+    assert tuple(seg.probs.Minv_red.shape) == (16, 1, 1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    v = torch.randn(dense.probs.nvec.shape, generator=gen,
+                    dtype=torch.float64, device=dev)
+    ref = dense.probs.mG00_d @ v
+    out = seg.probs.mG00_matvec(v)
+    assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    res = []
+    for s in (dense, seg):
+        st, _ = s.run_steps(s.initialize(), 0, 50)
+        res.append([float(x) for x in s._metrics(st)])
+    (fd, gd), (fs, gs) = res
+    np.testing.assert_allclose(fs, fd, rtol=1e-6)
+    np.testing.assert_allclose(gs, gd, rtol=1e-3)
+    assert seg.syncs.loops["seg_cg"][0] >= 50
