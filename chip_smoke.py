@@ -40,19 +40,41 @@ TNT preset, 16 nodes, float32, 150 iterations:
      per node, made by `tools/make_rim.py --rows 32 --cols 64 --floors 50`
      in a subprocess when the file is absent), AMM-PGO# with the refinement
      off, 100 steps: the segment path's CG translation solves.
-   - rim100k_refined: the same solver under the refined preset, 100 steps:
+   - rim100k_refined: the same solver under the refined preset, 50 steps:
      the coupled (t, R) TNT model.
    - rim100k_robust: the graph with every tenth inter-node edge replaced by
-     an outlier (SEED + 5), Huber + dynamic rescale, 60 steps: the CG
+     an outlier (SEED + 5), Huber + dynamic rescale, 40 steps: the CG
      matvec reads the rescale weights.
    - rim_edgewise: rim_synth with 6 nodes (1,707 poses per node,
-     n0 d = 5,121), refined preset, 150 steps: the matrix-free operators
+     n0 d = 5,121), refined preset, 100 steps: the matrix-free operators
      and the R-space TNT model with the block-Jacobi preconditioner.
+   - polish_rim100k: the global polish (3 outer iterations, STPCG capped at
+     100, no coarse level) of rim100k_prox's state after its 100 steps: the
+     segment branch of the node-block preconditioner and K2 at
+     [102400, 3, 3]; 2f held not above the JAX bench's 167909.09.
    On the rim100k solver two choices the package made are measured again:
    the block form of `mG00_matvec` against the edge-wise form, and the
    host-read CG loop against a fixed-trip loop that reads nothing (both
    alternatives are defined here, held to the package's results, and timed
    in turns).
+
+8. the global polish and the certificate (run after path 6, before 7):
+   - polish_rim: a float64 DPGOSolver on rim_synth with the refinement off,
+     started from path 1's float32 estimate after its 150 steps, runs
+     `polish(outer=10, tcg=300, coarse=True)` (K2 in float64 in every
+     retraction); 2f held within 1e-8 of the certified optimum
+     RIM_CERTIFIED_2F, 2|grad| to fall 100x, and the same polish with K2's
+     plain version to agree within 1e-10 in 2f.
+   - certify_rim: `certify_solution` on the card for the polished rotations
+     (certified, lambda_min >= -1e-5, 2 fxhat within 1e-8 of the optimum)
+     and for a negative control (rotations of poses 2000-3999 turned 0.5
+     rad about z: not certified, lambda_min < -1e-2); prints the route,
+     seconds on the card and on the host, and the host round trips.
+   - cli_certify: `cli.main` on grid3D_synth, 4 nodes, float64, 20
+     iterations, `--polish 5 --lm_polish --certify`: GLOBAL OPT, final 2f
+     within 1e-9 of GRID3D_CERTIFIED_2F, result files written.
+   - sesync_grid: `sesync_cli.main` on grid3D_synth: GlobalOpt at rank 3,
+     2 SDP within 1e-8 of GRID3D_SDP_2F.
 
 Paths 1-5 and 7 are checked against the same path run with the kernels'
 plain versions on the card, and against the exact global objective.
@@ -98,6 +120,24 @@ RIM100K = os.path.join("artifacts", "rim_synth_100k.g2o")
 RIM100K_JAX_2F_100 = 167909.09
 EDGEWISE_NODES = 6
 LOSS_REG = 0.25  # the CLI's default robust-loss parameter
+GRID3D = os.path.join("artifacts", "grid3D_synth.g2o")
+# Certified optima (2f), made by the JAX package on a CPU in float64: the
+# centralized chordal start, solvers/host_lm.py::lm_polish, then
+# sesync/staircase.py::certify_solution (certified; rim: lambda_min
+# -1.74e-9; grid3D: -5.0e-6). On grid3D_synth the staircase (sesync) reaches
+# GlobalOpt at rank 3 with 2 SDP = GRID3D_SDP_2F.
+RIM_CERTIFIED_2F = 16169.87454298
+GRID3D_CERTIFIED_2F = 5385.488470979
+GRID3D_SDP_2F = 5385.488470979148
+# The global polish of the rim path's estimate (polish_rim): outer TNT
+# iterations and the STPCG cap; on rim100k (polish_rim100k) a shorter run
+# without the coarse level.
+POLISH_OUTER, POLISH_TCG = 10, 300
+POLISH_100K_OUTER, POLISH_100K_TCG = 3, 100
+# Depth of rim100k_refined (100 steps until the polish paths came; cut
+# with rim100k_robust's, 60 -> 40, and rim_edgewise's, 150 -> 100, to keep
+# the whole run well inside its time limit).
+REFINED_100K_STEPS = 50
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
 # bandwidth, float32 and float64 outside the tensor cores (the kernels'
 # types).
@@ -705,6 +745,184 @@ def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
     return summary, launches, st
 
 
+def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
+    """The polish and certification paths (module docstring, 8): fills
+    `paths` and `launches` for polish_rim, certify_rim, cli_certify and
+    sesync_grid. `rim_est` is the rim path's float32 (t, R) after its
+    steps."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from dpgo_tpu_torch import cli, sesync_cli
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+    from dpgo_tpu_torch.sesync.staircase import certify_solution
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    from dpgo_tpu_torch.solvers.tnt import TNTParams
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    # polish_rim: a float64 solver with the refinement off, started from the
+    # rim path's float32 estimate; the global TNT with the rigid coarse
+    # level; K2 in float64 in every retraction.
+    t0 = time.perf_counter()
+    solver = DPGOSolver(rim, num_nodes=NUM_NODES,
+                        opts=MMOptions(tnt=TNTParams(max_iterations=0)),
+                        dtype=torch.float64, device=dev)
+    st0 = solver.initialize(*rim_est)
+    f0, g0 = (float(x) for x in solver._metrics(st0))
+    torch.cuda.synchronize()
+    print(f"polish_rim: float64 solver, {NUM_NODES} nodes, refinement off, "
+          f"from rim's float32 estimate: build and initialize "
+          f"{time.perf_counter() - t0:.1f} s; 2f {f0:.8f}, 2|grad| {g0:.3e}")
+
+    def polish(sv):
+        sv.syncs = HostSyncs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, f2 = sv.polish(st0, outer=POLISH_OUTER, tcg=POLISH_TCG,
+                           coarse=True)
+        torch.cuda.synchronize()
+        return st, f2, time.perf_counter() - t0
+
+    reset_counts()
+    st, f2, secs = polish(solver)
+    launches["polish_rim"] = kernel_counts()
+    f, g = (float(x) for x in solver._metrics(st))
+    outer, cg = solver.syncs.loops.get("stpcg", [0, 0])
+    gap = f2 / RIM_CERTIFIED_2F - 1.0
+    print(f"polish_rim [{card}]: {secs:.2f} s, {outer} outer iterations, "
+          f"{cg} CG iterations, {solver.syncs.count} host syncs, K2 float64 "
+          f"launches {launches['polish_rim']['polar_so3_f64']}; 2f "
+          f"{f2:.10f} (exact oracle {f:.10f}), {gap:.3e} relative to the "
+          f"certified {RIM_CERTIFIED_2F}; 2|grad| {g0:.3e} -> {g:.3e}")
+    check(launches["polish_rim"]["polar_so3_f64"] > 0, "polish_rim: K2 "
+          f"float64 was not launched: {launches['polish_rim']}")
+    check(abs(gap) <= 1e-8, f"polish_rim: 2f {f2} not within 1e-8 of the "
+          f"certified {RIM_CERTIFIED_2F}")
+    check(g <= g0 / 100, f"polish_rim: 2|grad| fell from {g0} to {g}, less "
+          "than 100x")
+    # The same polish with K2's plain version.
+    twin = copy.copy(solver)
+    twin.probs = dataclasses.replace(solver.probs, kernels=False)
+    before = kernel_counts()
+    _, f2p, secs_p = polish(twin)
+    check(kernel_counts() == before, "polish_rim: the plain run launched a "
+          "kernel")
+    rel = abs(f2 - f2p) / abs(f2p)
+    print(f"polish_rim with plain versions [{card}]: {secs_p:.2f} s, 2f "
+          f"{f2p:.10f}; relative difference {rel:.3e}")
+    check(rel <= 1e-10, f"polish_rim: kernel and plain polish disagree in "
+          f"2f by {rel} > 1e-10")
+    paths["polish_rim"] = {
+        "seconds": secs, "plain_seconds": secs_p, "outer": outer,
+        "cg_iterations": cg, "host_syncs": solver.syncs.count,
+        "f2_start": f0, "grad2_start": g0, "f2": f2, "f2_plain": f2p,
+        "grad2": g, "gap_to_certified": gap,
+        "launches": launches["polish_rim"], "card": card}
+    R_pol = solver.gather_global(st)[1].cpu().numpy()
+    del solver, twin, st, st0
+
+    # certify_rim: the polished rotations, then a negative control.
+    th = 0.5
+    turn = np.array([[np.cos(th), -np.sin(th), 0.0],
+                     [np.sin(th), np.cos(th), 0.0], [0.0, 0.0, 1.0]])
+    R_bad = R_pol.copy()
+    R_bad[2000:4000] = turn @ R_bad[2000:4000]
+    reset_counts()
+    out = {}
+    for name, R in (("polished", R_pol), ("control", R_bad)):
+        stats = {}
+        ok, lam, bound, fx = certify_solution(rim, R, device=dev,
+                                              stats=stats)
+        loops = stats["loops"]
+        out[name] = dict(certified=bool(ok), lambda_min=lam,
+                         bound_2x=2 * bound, f2=2 * fx, **stats)
+        print(f"certify_rim, {name} [{card}]: {stats['seconds']:.2f} s "
+              f"({stats['apply_S_s']:.2f} s in {stats['apply_S_calls']} "
+              f"applications of S on the card, each with its host SuperLU "
+              f"round trip; {stats['seconds'] - stats['apply_S_s']:.2f} s "
+              f"on the host: scipy S_full, compression, factorization, "
+              f"ARPACK), route {stats['route']}, "
+              f"{'certified' if ok else 'not certified'}, lambda_min "
+              f"{lam:.3e}, bound (2x) {2 * bound:.3e}, 2 fxhat {2 * fx:.10f}; "
+              f"host round trips {loops}")
+    launches["certify_rim"] = kernel_counts()
+    pol, ctl = out["polished"], out["control"]
+    check(pol["certified"] and pol["lambda_min"] >= -1e-5, "certify_rim: "
+          f"the polished rotations are not certified: {pol}")
+    check(abs(pol["f2"] / RIM_CERTIFIED_2F - 1.0) <= 1e-8, "certify_rim: "
+          f"2 fxhat {pol['f2']} not within 1e-8 of {RIM_CERTIFIED_2F}")
+    check(not ctl["certified"] and ctl["lambda_min"] < -1e-2, "certify_rim: "
+          f"the negative control was not rejected: {ctl}")
+    paths["certify_rim"] = dict(out, card=card)
+
+    # cli_certify: the CLI's chain on grid3D_synth (float64 default).
+    grid = os.path.join(root, GRID3D)
+    work = tempfile.TemporaryDirectory()
+    here = os.getcwd()
+    buf = io.StringIO()
+    reset_counts()
+    try:
+        os.chdir(work.name)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--dataset", grid, "--num_nodes", "4", "--iters",
+                      "20", "--polish", "5", "--lm_polish", "--certify"])
+        secs = time.perf_counter() - t0
+        rows = np.loadtxt("results_chordal_4_amm.txt", ndmin=2)
+        est = np.loadtxt("estimates_trivial.txt", ndmin=2)
+    finally:
+        os.chdir(here)
+        work.cleanup()
+    launches["cli_certify"] = kernel_counts()
+    text = buf.getvalue()
+    lines = [ln for ln in text.splitlines() if not ln[:1].isdigit()]
+    print(f"cli_certify [{card}]: {secs:.2f} s, {rows.shape[0]} result rows, "
+          f"2f {rows[0, 2]:.6f} -> {rows[-1, 2]:.12f}, launches "
+          f"{launches['cli_certify']}; the CLI printed (iteration rows "
+          "left out):\n  " + "\n  ".join(lines))
+    cert = [ln for ln in lines if ln.startswith("certification:")]
+    check(len(cert) == 1 and "GLOBAL OPT" in cert[0],
+          f"cli_certify: certification line {cert}")
+    meas_g = read_g2o_file(grid)
+    check(rows.shape == (23, 4) and np.isfinite(rows).all(),
+          f"cli_certify: result rows {rows.shape}")
+    check(est.shape == (meas_g.num_poses * 4, 3),
+          f"cli_certify: estimates shape {est.shape}")
+    check(abs(rows[-1, 2] / GRID3D_CERTIFIED_2F - 1.0) <= 1e-9,
+          f"cli_certify: final 2f {rows[-1, 2]} not within 1e-9 of "
+          f"{GRID3D_CERTIFIED_2F}")
+    paths["cli_certify"] = {"seconds": secs, "rows": rows.tolist(),
+                            "certification": cert[0],
+                            "launches": launches["cli_certify"],
+                            "card": card}
+
+    # sesync_grid: the staircase through its CLI.
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sesync_cli.main(["--dataset", grid])
+    secs = time.perf_counter() - t0
+    launches["sesync_grid"] = kernel_counts()
+    print(f"sesync_grid [{card}]: {secs:.2f} s, status {res.status}, rank "
+          f"{res.rank}, 2 SDP {2 * res.sdp_val:.12f}, 2 fxhat "
+          f"{2 * res.fxhat:.12f}, lambda_min {res.lambda_min:.3e}, launches "
+          f"{launches['sesync_grid']}")
+    check(res.status == "GlobalOpt" and res.rank == 3,
+          f"sesync_grid: {res.status} at rank {res.rank}")
+    check(abs(2 * res.sdp_val / GRID3D_SDP_2F - 1.0) <= 1e-8,
+          f"sesync_grid: 2 SDP {2 * res.sdp_val} not within 1e-8 of "
+          f"{GRID3D_SDP_2F}")
+    paths["sesync_grid"] = {"seconds": secs, "status": res.status,
+                            "rank": res.rank, "sdp_2x": 2 * res.sdp_val,
+                            "fxhat_2x": 2 * res.fxhat,
+                            "lambda_min": res.lambda_min,
+                            "launches": launches["sesync_grid"],
+                            "card": card}
+
+
 def ensure_rim100k(root: str) -> str:
     """The path of rim_synth_100k.g2o, made with tools/make_rim.py (numpy
     only) in a subprocess when the file is absent."""
@@ -896,6 +1114,7 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
     from dpgo_tpu_torch.solvers.mm import MMOptions, resolve_preconditioner
     from dpgo_tpu_torch.solvers.tnt import TNTParams
     from dpgo_tpu_torch.synthetic import with_outliers
+    from dpgo_tpu_torch.utils import HostSyncs
 
     path = ensure_rim100k(root)
     t0 = time.perf_counter()
@@ -912,7 +1131,7 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
     # Proximal only: the configuration of the JAX bench's rim_synth_100k row.
     solver_p = copy.copy(solver)
     solver_p.opts = prox
-    paths["rim100k_prox"], launches["rim100k_prox"], _ = run_path(
+    paths["rim100k_prox"], launches["rim100k_prox"], st = run_path(
         "rim100k_prox", solver_p, init, ("polar_so3",), card, steps=100,
         fused=False)
     print(f"rim100k_prox: 2f after 100 steps "
@@ -920,15 +1139,48 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
           f"{paths['rim100k_prox']['f2_exact']:.2f}); the JAX package's "
           f"bench recorded {RIM100K_JAX_2F_100:.2f} for this configuration "
           "(reported, not held)")
+    # polish_rim100k: the global polish of that state, without the coarse
+    # level: the segment branch of the node-block preconditioner (segment
+    # mG11 inverses, segment-Schwarz CG translation solves) and K2 at
+    # [102400, 3, 3] in float32.
+    solver_p.syncs = HostSyncs()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, f2 = solver_p.polish(st, outer=POLISH_100K_OUTER,
+                             tcg=POLISH_100K_TCG, coarse=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["polish_rim100k"] = kernel_counts()
+    f_ex = float(solver_p._metrics(st)[0])
+    loops = loop_stats(solver_p.syncs)
+    print(f"polish_rim100k [{card}]: {secs:.2f} s, 2f "
+          f"{paths['rim100k_prox']['f2_exact']:.2f} -> {f2:.2f} (exact "
+          f"{f_ex:.2f}), {solver_p.syncs.count} host syncs, host-driven "
+          f"loops [entries, trips per entry] {loops}, launches "
+          f"{launches['polish_rim100k']}")
+    check(np.isfinite(f2) and f2 <= RIM100K_JAX_2F_100, "polish_rim100k: "
+          f"2f {f2} not finite or above {RIM100K_JAX_2F_100}")
+    check(launches["polish_rim100k"]["polar_so3"] > 0, "polish_rim100k: K2 "
+          "was not launched")
+    check(loops.get("seg_cg", [0])[0] > 0, "polish_rim100k: no "
+          "segment-Schwarz CG solve ran")
+    paths["polish_rim100k"] = {"seconds": secs, "f2": f2, "f2_exact": f_ex,
+                               "host_syncs": solver_p.syncs.count,
+                               "loops": loops,
+                               "launches": launches["polish_rim100k"],
+                               "card": card}
+    del st
     paths["rim100k_prox"]["choices"] = phase_segment_choices(solver_p, init,
                                                              card)
     to_profile.append(("rim100k_prox", solver_p, init))
 
     paths["rim100k_refined"], launches["rim100k_refined"], _ = run_path(
-        "rim100k_refined", solver, init, ("polar_so3",), card, steps=100,
-        fused=False, runs=1)
-    # The proximal path made two runs of the same 100 steps.
-    k2_prox = launches["rim100k_prox"]["polar_so3"] // 2
+        "rim100k_refined", solver, init, ("polar_so3",), card,
+        steps=REFINED_100K_STEPS, fused=False, runs=1)
+    # The proximal path made two runs of 100 steps.
+    k2_prox = launches["rim100k_prox"]["polar_so3"] * REFINED_100K_STEPS \
+        // 200
     k2_ref = launches["rim100k_refined"]["polar_so3"]
     stp = paths["rim100k_refined"]["loops"].get("stpcg", [0, 0.0])
     print(f"rim100k_refined: K2 launches {k2_ref} against the proximal "
@@ -948,7 +1200,7 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
                                loss=Loss.HUBER, loss_reg=LOSS_REG)
     check(solver.probs.seg, "rim100k_robust: not on the segment path")
     paths["rim100k_robust"], launches["rim100k_robust"], st = run_path(
-        "rim100k_robust", solver, init, ("polar_so3",), card, steps=60,
+        "rim100k_robust", solver, init, ("polar_so3",), card, steps=40,
         fused=False, runs=1)
     check(solver.problems(st).dynamic, "rim100k_robust: the iterate's "
           "problems are not reweighted")
@@ -979,8 +1231,8 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
           "rim_edgewise: the preconditioner did not resolve to jacobi")
     check_no_dense_block("rim_edgewise", solver.probs, seg=False)
     paths["rim_edgewise"], launches["rim_edgewise"], _ = run_path(
-        "rim_edgewise", solver, init, ("polar_so3",), card, fused=False,
-        runs=1)
+        "rim_edgewise", solver, init, ("polar_so3",), card, steps=100,
+        fused=False, runs=1)
     to_profile.append(("rim_edgewise", solver, init))
 
 
@@ -1063,8 +1315,11 @@ def main() -> int:
     del mG11
     st, _ = solver.run_steps(solver.initialize(*init), 0, 3)
     k1["rim"] = phase_stpcg("rim", solver.probs, st, tp, card)
-    paths["rim"], launches["rim"], _ = run_path(
+    paths["rim"], launches["rim"], st = run_path(
         "rim", solver, init, ("polar_so3", "stpcg"), card)
+    # The estimate the polish path starts from.
+    rim_est = tuple(x.double().cpu().numpy()
+                    for x in solver.gather_global(st))
     to_profile = [("rim", solver, init)]
     rim_init = init
     del st
@@ -1286,8 +1541,11 @@ def main() -> int:
         os.chdir(here)
     work.cleanup()
 
-    # Path 7: node blocks above the dense limit.
+    # Path 8: the global polish and the certificate.
     del solver
+    polish_certify_paths(root, dev, card, rim, rim_est, paths, launches)
+
+    # Path 7: node blocks above the dense limit.
     large_block_paths(root, dev, card, make_solver, rim, paths, launches,
                       to_profile)
 

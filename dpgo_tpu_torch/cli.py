@@ -6,13 +6,18 @@ Usage:
         [--iters 1000] [--dist_init true] [--loss trivial|huber|...]
         [--accelerated true] [--solver hash|star] [--save true] [--f32]
         [--checkpoint path.npz] [--checkpoint_every 100] [--device cuda]
+        [--polish OUTER] [--polish_tcg 500] [--polish_coarse true]
+        [--polish_levels 64,256] [--lm_polish] [--certify]
 
 Writes results_chordal_<N>_<amm|mm>.txt with rows `iter time fobj grad`
 (2x-scaled objective/gradient as in the reference) and gauge-normalized
 estimates_<loss>.txt (first pose at origin/identity) into the working
 directory. Runs on the CUDA card unless `--device` names another
-(`--device cpu`). The flags of the modules not ported yet (PCM,
-certification, the polishes) are parsed and refused before the solve.
+(`--device cpu`). After the MM iterations, `--polish`, `--lm_polish` and
+`--certify` run in that order: the global Riemannian TNT polish on the card,
+the host sparse LM polish, and the SE-Sync certificate of the final
+rotations. The PCM flags (not ported yet) are parsed and refused before the
+solve.
 """
 
 from __future__ import annotations
@@ -24,8 +29,7 @@ import time
 import numpy as np
 
 # Flags of modules not ported yet: refused (not ignored) when set.
-_NOT_PORTED = ("pcm", "pcm_tolerance", "pcm_stream", "certify", "polish",
-               "polish_tcg", "polish_coarse", "polish_levels", "lm_polish")
+_NOT_PORTED = ("pcm", "pcm_tolerance", "pcm_stream")
 
 
 def _bool(v: str) -> bool:
@@ -65,16 +69,27 @@ def _parser() -> argparse.ArgumentParser:
                          "the chordal initialization")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the CUDA card)")
+    ap.add_argument("--certify", action="store_true",
+                    help="SE-Sync certification of the final estimate")
+    ap.add_argument("--polish", type=int, default=0, metavar="OUTER",
+                    help="after the MM iterations, run OUTER global "
+                         "Riemannian trust-region iterations on the coupled "
+                         "problem (solvers/polish.py)")
+    ap.add_argument("--polish_tcg", type=int, default=500)
+    ap.add_argument("--polish_coarse", type=_bool, default=True,
+                    help="two-level block-rigid coarse preconditioner for "
+                         "the polish")
+    ap.add_argument("--polish_levels", default="",
+                    help="comma list of extra contiguous-segment coarse "
+                         "levels for the polish preconditioner (e.g. "
+                         "'64,256')")
+    ap.add_argument("--lm_polish", action="store_true",
+                    help="(trivial loss) finish with the host-side exact "
+                         "sparse Newton polish (solvers/host_lm.py)")
     # Not ported yet: parsed so that setting one is refused, not ignored.
     ap.add_argument("--pcm", action="store_true")
     ap.add_argument("--pcm_tolerance", type=float, default=0.2)
     ap.add_argument("--pcm_stream", type=int, default=0)
-    ap.add_argument("--certify", action="store_true")
-    ap.add_argument("--polish", type=int, default=0)
-    ap.add_argument("--polish_tcg", type=int, default=500)
-    ap.add_argument("--polish_coarse", type=_bool, default=True)
-    ap.add_argument("--polish_levels", default="")
-    ap.add_argument("--lm_polish", action="store_true")
     return ap
 
 
@@ -100,6 +115,9 @@ def main(argv=None):
     dtype = torch.float32 if args.f32 else torch.float64
     meas = read_g2o_file(args.dataset)
     loss = Loss(args.loss)
+    # Validate flag combinations before the solve.
+    if args.lm_polish and loss is not Loss.TRIVIAL:
+        raise SystemExit("--lm_polish requires trivial loss")
     print(f"dataset: {args.dataset}  poses={meas.num_poses}  "
           f"edges={len(meas)}  d={meas.d}")
 
@@ -151,6 +169,36 @@ def main(argv=None):
             from dpgo_tpu_torch.checkpoint import save_state
             save_state(args.checkpoint, st, k, gauge_c=solver._c)
 
+    if args.polish > 0:
+        sync()
+        t_start = time.perf_counter()
+        segs = tuple(int(x) for x in args.polish_levels.split(",")
+                     if x.strip())
+        st, _ = solver.polish(st, outer=args.polish, tcg=args.polish_tcg,
+                              coarse=args.polish_coarse,
+                              coarse_segments=segs)
+        sync()
+        elapsed += time.perf_counter() - t_start
+        f, g = solver._metrics(st)
+        rows.append((k, elapsed, float(f), float(g)))
+        print(f"polish({args.polish}): {float(f):.20g} {float(g):.20g}")
+
+    if args.lm_polish:
+        from dpgo_tpu_torch.solvers.host_lm import host_objective_2f, lm_polish
+        t_g, R_g = (x.cpu().numpy().astype(np.float64)
+                    for x in solver.gather_global(st))
+        t_start = time.perf_counter()
+        res = lm_polish(meas, t_g, R_g)
+        elapsed += time.perf_counter() - t_start
+        st = solver.initialize(res.t, res.R)
+        f, g = solver._metrics(st)
+        # A float32 solver's metrics have a ~1e-4-relative noise floor that
+        # can mask the f64 polish; report the exact host f64 objective too.
+        f64_2f = host_objective_2f(meas, res.t, res.R)
+        rows.append((k, elapsed, float(f), float(g)))
+        print(f"lm_polish({res.iters} it): {float(f):.20g} "
+              f"{float(g):.20g} (exact f64 2f = {f64_2f:.12f})")
+
     print("---------------------------------------")
     print(f"final objective: {rows[-1][2]}")
     print(f"final gradient: {rows[-1][3]}")
@@ -162,6 +210,12 @@ def main(argv=None):
     if args.save_npz:
         np.savez(args.save_npz, t=t_glob, R=R_glob)
         print(f"saved estimate to {args.save_npz}")
+
+    if args.certify:
+        from dpgo_tpu_torch.sesync.staircase import certify_solution
+        ok, lam, bound, fx = certify_solution(meas, R_glob, device=device)
+        print(f"certification: {'GLOBAL OPT' if ok else 'uncertified'} "
+              f"lambda_min={lam:.3e} suboptimality_bound={bound:.3e}")
 
     if args.save:
         name = f"results_chordal_{args.num_nodes}_" \

@@ -17,11 +17,13 @@ from dpgo_tpu_torch.chordal import distributed_chordal_init
 from dpgo_tpu_torch.graph import build_multigraph
 from dpgo_tpu_torch.io.g2o import Measurements
 from dpgo_tpu_torch.losses import Loss
+from dpgo_tpu_torch.manifold import proj_tangent
 from dpgo_tpu_torch.objective import EdgeData, evaluate_f, grad_norm
-from dpgo_tpu_torch.problem import NodeState, build_node_problems
+from dpgo_tpu_torch.problem import NodeProblem, NodeState, build_node_problems
 from dpgo_tpu_torch.sesync import (chordal_initialization,
                                    recover_translations_global)
 from dpgo_tpu_torch.solvers import mm as mm_mod
+from dpgo_tpu_torch.solvers import polish as polish_mod
 from dpgo_tpu_torch.solvers import star as star_mod
 from dpgo_tpu_torch.solvers.mm import MMOptions, MMState, init_state
 from dpgo_tpu_torch.utils import HostSyncs, resolve_device
@@ -253,6 +255,105 @@ class DPGOSolver:
                                                   self.opts) == "dense"
                 and tnt.max_iterations > 0
                 and tnt.max_iterations_accepted > 0)
+
+    def _node_block_precondition(self, probs: NodeProblem):
+        """Node-block preconditioner for the global polish: per node, the
+        exact mG00 solve for translations (split inverse, or segment-Schwarz
+        CG on the segment path) and for rotations the dense regularized
+        mG11 inverse (dense path), its segment-dense analog (segment path)
+        or the block-Jacobi blocks (edge-wise path). Block-diagonal over
+        nodes, so SPD; it collapses intra-node conditioning exactly and
+        leaves CG only the inter-node coupling."""
+        mg = self.mg
+        P = self.meas.num_poses
+        gidx = torch.as_tensor(np.minimum(
+            np.asarray(mg.start)[:, None] + np.arange(mg.n0_max)[None, :],
+            P - 1), device=self.device)
+        mask = torch.as_tensor(np.arange(mg.n0_max)[None, :]
+                               < np.asarray(mg.n0)[:, None],
+                               device=self.device)
+
+        def precondition(x, v):
+            vt, vR = v
+            tn = torch.where(mask[..., None], vt[gidx], 0.0)
+            Rn = torch.where(mask[..., None, None], vR[gidx], 0.0)
+            if probs.dense:
+                Rp = probs.from_tall(probs.precon_dense @ probs.to_tall(Rn))
+            elif probs.seg:
+                Rp = probs.precondition_R_seg(Rn)
+            else:
+                Rp = Rn @ probs.precon_inv
+            tp = probs.solve_mG00(tn, t_anchor=torch.zeros_like(tn),
+                                  syncs=self.syncs)
+            out_t = tp[self.node_of, self.local_of]
+            out_R = Rp[self.node_of, self.local_of]
+            return out_t, proj_tangent(x[1], out_R)
+
+        return precondition
+
+    def polish(self, st: MMState, outer: int = 20, tcg: int = 500,
+               node_precon: bool = True, coarse: bool = False,
+               coarse_segments: tuple = ()):
+        """Global second-order tail polish: gather the full pose state, run
+        Riemannian TNT on the coupled problem (solvers/polish.py) on this
+        solver's device and type, and re-initialize the solver at the
+        result. Returns (state, 2 f_value).
+
+        `coarse=True` adds the block-rigid coarse correction to the
+        preconditioner (cross-node lever-arm conditioning); non-empty
+        `coarse_segments` (e.g. (64, 256)) adds finer contiguous-segment
+        rigid levels on top (the additive multilevel hierarchy; see
+        polish.multilevel_rigid_preconditioner) and implies the coarse
+        path, which needs the node preconditioner as its base level. The
+        retraction's SO(3) projection follows `self.probs.kernels` (K2)."""
+        coarse_segments = tuple(coarse_segments)
+        if coarse_segments and not coarse:
+            coarse = True  # segments imply the multilevel hierarchy
+        if coarse and not node_precon:
+            raise ValueError(
+                "polish(coarse=True / coarse_segments=...) needs the "
+                "node-block preconditioner as the hierarchy's base level; "
+                "pass node_precon=True")
+        params = polish_mod.polish_params(outer=outer, tcg=tcg)
+        kernels = self.probs.kernels
+        t, R = self._place_global(*self.gather_global(st))
+        precon = (self._node_block_precondition(self.probs)
+                  if node_precon else None)
+        if coarse and precon is not None:
+            model0 = polish_mod.global_tnt_model(
+                self.edges, self.loss, self.loss_reg, num_poses=t.shape[0],
+                precondition=precon, kernels=kernels)
+            _, nabla = model0.grad_and_nabla((t, R))
+            P = t.shape[0]
+            levels = [(self.node_of, self.num_nodes)]
+            levels += [(polish_mod.contiguous_segments(P, m, self.device), m)
+                       for m in coarse_segments if m < P]
+            precon = polish_mod.multilevel_rigid_preconditioner(
+                model0.hess_vp, nabla, (t, R), levels, precon)
+        t2, R2, fx = polish_mod.polish_global(
+            self.edges, t, R, loss=self.loss, loss_reg=self.loss_reg,
+            params=params, precondition=precon, kernels=kernels,
+            syncs=self.syncs)
+        st2 = self.initialize(t2.cpu().numpy(), R2.cpu().numpy())
+        return st2, 2.0 * float(fx)
+
+    def _place_global(self, t, R):
+        """Placement hook for the gathered global pose state before the
+        polish (a sharded solver would shard the pose axis here; this one
+        keeps it on its device)."""
+        return t, R
+
+    def refine_stats(self, st: MMState) -> dict:
+        """Per-node, per-TNT-outer-iteration refinement profile for the
+        current state: (f, |grad|, |Pgrad|, Delta, inner CG iterations,
+        step M-norm, rho, accepted) ring buffers plus the refinement gate
+        mask (the reference's TNTResult series). A diagnostic probe: it
+        re-runs the refinement of the next step outside the step."""
+        refined, hist = mm_mod.refine_probe(self.probs, st, self.opts,
+                                            self.syncs)
+        out = {k: v.cpu().numpy() for k, v in hist._asdict().items()}
+        out["refined_mask"] = refined.cpu().numpy()
+        return out
 
     def node_stats(self, st: MMState) -> dict:
         """Per-node observability snapshot (the reference's DPGOResult

@@ -16,6 +16,7 @@ import torch
 from dpgo_tpu_torch.io.g2o import Measurements
 from dpgo_tpu_torch.losses import Loss, loss_value, loss_weight
 from dpgo_tpu_torch.manifold import proj_tangent
+from dpgo_tpu_torch.utils import resolve_device
 
 
 @dataclasses.dataclass
@@ -33,7 +34,10 @@ class EdgeData:
     @staticmethod
     def from_measurements(meas: Measurements,
                           node_of: np.ndarray | None = None,
-                          dtype=torch.float64, device="cpu") -> "EdgeData":
+                          dtype=torch.float64, device=None) -> "EdgeData":
+        """The edge arrays on the CUDA card unless `device` names another
+        (`device="cpu"`)."""
+        device = resolve_device(device)
         if node_of is None:
             is_inter = np.zeros(len(meas), dtype=bool)
         else:

@@ -1,0 +1,730 @@
+"""SE-Sync Riemannian staircase + solution certification (torch port of
+dpgo_tpu/sesync/staircase.py).
+
+For r = d .. rmax: TNT on the rank-r Stiefel-product relaxation (a batch of
+one, solvers/tnt.py), certification through the dual certificate
+S = Q - Lambda, and on a saddle a lift of the negative-curvature eigenvector
+to rank r + 1 with a backtracking escape. Rounding projects the solution to
+SO(d)^n and recovers translations.
+
+Certification bound: for feasible Y (block rows orthonormal, |Y|^2 = n d),
+  <Q y, y> = <S y, y> + tr(Lambda)  >=  n d min(0, lambda_min(S)) + tr(Lambda)
+so f* >= f(Y) + (n d / 2) min(0, lambda_min(S)); lambda_min >= -tol certifies
+global optimality of the rounded solution up to that gap.
+
+Where the work runs: the operator S (`apply_S`) and LOBPCG's dense algebra
+on the problem's device (the CUDA card by default), LOBPCG as a host-read
+loop (one flag read per iteration, counted in `HostSyncs`); the sparse
+direct pieces (SuperLU, ARPACK, the translation-explicit certificate) on the
+host with scipy, as in the JAX package. Random starts come from a
+`torch.Generator` on the device seeded as the JAX package seeds its keys, so
+runs of the two packages agree in eigenvalues, verdicts and bounds, not in
+vectors. Certification runs in float64 whatever the solver's type.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from dpgo_tpu_torch.io.g2o import Measurements
+from dpgo_tpu_torch.sesync.problem import (build_sesync_explicit,
+                                           build_sesync_problem)
+from dpgo_tpu_torch.solvers.tnt import TNTParams, tnt_one
+from dpgo_tpu_torch.utils import HostSyncs
+
+
+@dataclasses.dataclass
+class SESyncOpts:
+    r0: int = None  # defaults to d
+    rmax: int = 6
+    min_eig_tol: float = 1e-5
+    tnt: TNTParams = TNTParams(
+        max_iterations=200, max_iterations_accepted=200,
+        gradient_tolerance=1e-6, preconditioned_gradient_tolerance=1e-8,
+        relative_decrease_tolerance=1e-12, stepsize_tolerance=1e-8)
+    lobpcg_iters: int = 200
+    lobpcg_block: int = 4
+    escape_step: float = 1e-2
+
+
+@dataclasses.dataclass
+class SESyncResult:
+    # "GlobalOpt": certificate PSD — xhat is a global optimum.
+    # "MaxRank": staircase exhausted rmax without a PSD certificate.
+    # "EigImprecision": the certificate eigensolve was too marginal to
+    #   trust at this tolerance; callers should polish the estimate (LM)
+    #   and re-certify directly (certify_solution) instead of burning ranks.
+    status: str            # "GlobalOpt" | "MaxRank" | "EigImprecision"
+    R: np.ndarray          # [n, d, d]
+    t: np.ndarray          # [n, d]
+    fxhat: float           # objective of the rounded solution
+    sdp_val: float         # objective of the relaxation solution
+    lambda_min: float      # min eigenvalue of the certificate matrix S
+    suboptimality_bound: float
+    rank: int
+
+
+def chebyshev_precon(apply_S, lam_max, lam_min=None, degree=8):
+    """Chebyshev polynomial approximate inverse of the SPD-shifted
+    certificate operator (the role of the reference's ILDL LOBPCG
+    preconditioner): matrix-free, a fixed chain of `degree` matvecs.
+
+    Returns V -> p(S) V with p ~ 1/x on [a, b], a = lam_min or lam_max/100,
+    b = lam_max (Chebyshev iteration for S Y = V run `degree` steps from
+    Y0 = 0)."""
+    b = float(lam_max)
+    a = float(lam_min) if lam_min else b / 100.0
+    theta = 0.5 * (b + a)
+    delta = 0.5 * (b - a)
+    sigma1 = theta / delta
+
+    def apply(V):
+        # Chebyshev iteration (Saad, Iterative Methods, alg. 12.1).
+        rho = 1.0 / sigma1
+        Y = V / theta
+        R = V - apply_S(Y)
+        D = Y
+        for _ in range(degree - 1):
+            rho_new = 1.0 / (2.0 * sigma1 - rho)
+            D = rho_new * rho * D + (2.0 * rho_new / delta) * R
+            Y = Y + D
+            R = R - apply_S(D)
+            rho = rho_new
+        return Y
+
+    return apply
+
+
+def _normal(seed: int, shape, dtype, device) -> torch.Tensor:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=dtype, device=device)
+
+
+def min_eig_lobpcg(apply_S, nd, seed: int, dtype, block=4, iters=200,
+                   resid_tol=None, max_iters=20000, deflate=None,
+                   precon=None, device=None, syncs: HostSyncs | None = None):
+    """Smallest eigenpair of a symmetric operator via basic LOBPCG (B=I, no
+    constraints), on `device` (the default: `deflate`'s, else the CPU).
+
+    Returns (theta, v, resid) (0-d tensors and the vector) with
+    resid = |S v - theta v|. The Ritz value converges to lambda_min FROM
+    ABOVE, so callers must treat (theta - resid) as the defensible estimate.
+
+    With resid_tol set, iterates until the eigen-residual satisfies
+    resid <= max(resid_tol, 0.5 |theta|) (the sign question "is lambda_min
+    >= -2 resid_tol?" is answered) or max_iters is exhausted; the test is
+    read on the host once per iteration (`syncs`). Without it, exactly
+    `iters` iterations and no reads.
+
+    `deflate` ([nd, k]) keeps iterates orthogonal to span(deflate): the
+    smallest eigenpair of S restricted to that complement. `precon` (V ->
+    T V, T SPD ~ S^{-1}) is applied to the residual block each iteration.
+
+    Robustness: soft locking (columns whose residual is below the tolerance
+    contribute no search direction) and basis truncation (after the
+    [X R P] QR, columns whose |diag R-factor| is below sqrt(eps) of the
+    largest are masked out of the Rayleigh-Ritz with a large diagonal). S X
+    is carried across iterations (S X_{k+1} = (S Q) U from the
+    Rayleigh-Ritz pass), and the final pair is taken from one exact
+    operator application, so the returned residual is honest."""
+    syncs = syncs or HostSyncs()
+    if device is None:
+        device = (deflate.device if isinstance(deflate, torch.Tensor)
+                  else torch.device("cpu"))
+
+    def ortho(X):
+        return torch.linalg.qr(X)[0]
+
+    if deflate is not None:
+        D = ortho(torch.as_tensor(deflate, dtype=dtype, device=device))
+
+        def proj(X):
+            return X - D @ (D.T @ X)
+    else:
+        def proj(X):
+            return X
+
+    X = ortho(proj(_normal(seed, (nd, block), dtype, device)))
+    budget = iters if resid_tol is None else max_iters
+    lock_tol = 0.0 if resid_tol is None else resid_tol
+    drop_tol = float(torch.finfo(dtype).eps) ** 0.5
+
+    SX = apply_S(X)
+    P = torch.zeros_like(X)
+    k = 0
+    th = torch.zeros((), dtype=dtype, device=device)
+    resid = torch.full((), float("inf"), dtype=dtype, device=device)
+    while k < budget:
+        if resid_tol is not None and k >= 2:
+            # Stop once the SIGN question is resolved: theta is an upper
+            # bound on the (restricted) lambda_min, so a clearly negative
+            # theta is already a sound negative verdict; a positive theta
+            # certifies once the residual is safely below it.
+            unresolved = resid > torch.clamp(0.5 * th.abs(), min=resid_tol)
+            if not syncs.flag(unresolved):
+                break
+        theta = torch.sum(X * SX, dim=0)
+        Rres = SX - X * theta[None, :]
+        resid_cols = torch.linalg.norm(Rres, dim=0)
+        Rres = torch.where(resid_cols[None, :] <= lock_tol,
+                           torch.zeros_like(Rres), Rres)
+        if precon is not None:
+            Rres = precon(Rres)
+        Rres = proj(Rres)
+        V = torch.cat([X, Rres, P], dim=1)
+        Q, Rf = torch.linalg.qr(V)
+        dR = torch.abs(torch.diagonal(Rf))
+        good = dR > drop_tol * torch.max(dR)
+        good[:block] = True
+        SQ = apply_S(Q)
+        H = Q.T @ SQ
+        H = 0.5 * (H + H.T)
+        gmask = good[:, None] & good[None, :]
+        big = 1e12 * (1.0 + torch.max(torch.abs(H)))
+        H = torch.where(gmask, H, torch.zeros_like(H)) \
+            + torch.diag(torch.where(good, torch.zeros_like(dR), big))
+        w, U = torch.linalg.eigh(H)
+        U = U * good[:, None]
+        Xn = proj(Q @ U[:, :block])
+        SXn = SQ @ U[:, :block]
+        P = proj(Xn - X @ (X.T @ Xn))
+        X, SX = Xn, SXn
+        th = w[0]
+        resid = torch.linalg.norm(SX[:, 0] - th * X[:, 0])
+        k += 1
+    syncs.note("lobpcg", k)
+
+    # Final pair from an EXACT operator application (the carried S X picks
+    # up the drift re-projections): the residual feeds the certificate's
+    # defensible bound.
+    SX = apply_S(X)
+    theta = torch.sum(X * SX, dim=0)
+    i0 = torch.argmin(theta)
+    v = X[:, i0]
+    th = theta[i0]
+    resid = torch.linalg.norm(SX[:, i0] - th * v)
+    return th, v, resid
+
+
+def certificate_lambda_bound(apply_S, Y, seed: int, dtype, tol, iters=200,
+                             precon=None, syncs: HostSyncs | None = None):
+    """Defensible lower bound on lambda_min(S) at a (near-)stationary Y.
+
+    At stationarity S Y = 0, so span(Y) is S's near-null space and the
+    unrestricted spectrum clusters at 0. Split the space:
+
+        eps   = |S Yhat|_F           (Yhat = orthonormalized Y; exact matvec)
+        lamc  = lambda_min(S | span(Y)^perp)   (deflated LOBPCG, residual-
+                backed: lamc_cons = theta - resid)
+        lambda_min(S) >= ((lamc - eps) - sqrt((lamc + eps)^2 + 4 eps^2)) / 2
+
+    Returns (lam_lb, escape_vec, lamc_cons, eps)."""
+    Yd = torch.as_tensor(Y, dtype=dtype)
+    Q = torch.linalg.qr(Yd)[0]
+    eps = float(torch.linalg.norm(apply_S(Q)))
+    lamc, vec, resid = min_eig_lobpcg(
+        apply_S, Y.shape[0], seed, dtype, iters=iters, resid_tol=tol,
+        deflate=Yd, precon=precon, syncs=syncs)
+    lamc_c = float(lamc) - float(resid)
+    lam_lb = 0.5 * ((lamc_c - eps)
+                    - float(np.sqrt((lamc_c + eps) ** 2 + 4.0 * eps ** 2)))
+    return lam_lb, vec, lamc_c, eps
+
+
+def sesync(meas: Measurements, opts: SESyncOpts = SESyncOpts(),
+           dtype=torch.float64, Y0: np.ndarray | None = None,
+           formulation: str = "simplified", device=None) -> SESyncResult:
+    """Full certifiably-correct solve (Riemannian staircase) on the CUDA card
+    unless `device` names another.
+
+    formulation: "simplified" (translation-eliminated, the default),
+    "sosync" (rotation-only), or "explicit" (joint (t, Y) variables).
+    Certification always runs on the translation-eliminated certificate: at
+    a joint stationary point the translations are optimal given Y, so the
+    same dual certificate S = Q - Lambda applies."""
+    from dpgo_tpu_torch.sesync.init import chordal_initialization
+
+    prob = build_sesync_problem(
+        meas, dtype=dtype, device=device,
+        formulation="sosync" if formulation == "sosync" else "simplified")
+    dev = prob.tau.device
+    d, n = prob.d, prob.n
+    r = opts.r0 or d
+
+    if Y0 is None:
+        R0 = chordal_initialization(meas)
+        Y = torch.as_tensor(np.swapaxes(R0, 1, 2).reshape(n * d, d),
+                            dtype=dtype, device=dev)
+    else:
+        Y = torch.as_tensor(np.asarray(Y0), dtype=dtype, device=dev)
+    if Y.shape[1] < r:
+        Y = torch.cat([Y, Y.new_zeros((n * d, r - Y.shape[1]))], dim=1)
+
+    explicit = formulation == "explicit"
+    if explicit:
+        eprob = build_sesync_explicit(meas, dtype=dtype, device=dev)
+        t = prob.recover_translations(prob.round_solution(Y))
+        t = torch.cat([t, t.new_zeros((n, Y.shape[1] - d))], dim=1)
+
+    status = "MaxRank"
+    lam_min = np.nan
+    vec = None
+    for rank in range(r, opts.rmax + 1):
+        if explicit:
+            (t, Y), *_ = tnt_one(eprob.tnt_model(), (t, Y), opts.tnt,
+                                 syncs=prob.syncs)
+        else:
+            Y, *_ = tnt_one(prob.tnt_model(), Y, opts.tnt, syncs=prob.syncs)
+        Lam = prob.Lambda_blocks(Y)
+
+        def apply_S(V, Lam=Lam):
+            return prob.apply_S(Lam, V)
+
+        # The reference's fast_verification order: cheap sparse PSD accept,
+        # then ARPACK; the sparse translation-explicit certificate only
+        # models the simplified/explicit formulations (LOBPCG handles
+        # sosync).
+        lam_min = vec = None
+        if formulation != "sosync":
+            try:
+                lam_min, vec, lamc, eps = staged_lambda_bound(
+                    meas, Lam, apply_S, Y, dtype, opts.min_eig_tol,
+                    syncs=prob.syncs)
+            except Exception:
+                lam_min = None
+        if lam_min is None or (lam_min < -opts.min_eig_tol and vec is None):
+            # LOBPCG: the staged path was unavailable, or the PSD accept
+            # failed only through a large stationarity defect eps (vec =
+            # None) and a saddle escape direction is required.
+            lam_min, vec, lamc, eps = certificate_lambda_bound(
+                apply_S, Y, rank, dtype, opts.min_eig_tol,
+                iters=opts.lobpcg_iters, syncs=prob.syncs)
+        if lam_min >= -opts.min_eig_tol:
+            status = "GlobalOpt"
+            break
+        if lamc >= -opts.min_eig_tol / 2:
+            # No genuinely negative curvature direction in span(Y)^perp:
+            # the failed verdict comes from the stationarity defect or
+            # eigensolver imprecision, not a saddle (the reference's
+            # EigImprecision stop).
+            status = "EigImprecision"
+            break
+        if rank == opts.rmax:
+            break
+        # Saddle escape: lift to rank+1 along the negative eigenvector with
+        # backtracking (SESync::escape_saddle).
+        Yl = torch.cat([Y, Y.new_zeros((n * d, 1))], dim=1)
+        Vdir = torch.cat([torch.zeros_like(Y), vec[:, None]], dim=1)
+        f0 = float(prob.objective(Yl))
+        alpha = opts.escape_step
+        Y_next = None
+        for _ in range(30):
+            cand = prob.retract(Yl, alpha * Vdir)
+            if float(prob.objective(cand)) < f0 - 1e-12:
+                Y_next = cand
+                break
+            alpha *= 0.5
+        Y = Y_next if Y_next is not None else prob.retract(
+            Yl, opts.escape_step * Vdir)
+        if explicit:
+            t = torch.cat([t, t.new_zeros((n, 1))], dim=1)
+
+    sdp_val = float(prob.objective(Y))
+    R = prob.round_solution(Y)
+    t = prob.recover_translations(R)
+    Yr = R.transpose(1, 2).reshape(n * d, d)
+    fxhat = float(prob.objective(Yr))
+    # f(xhat) - f* <= (fxhat - sdp_val) + (nd/2) max(0, -lam_min).
+    bound = (fxhat - sdp_val) \
+        + 0.5 * n * d * max(0.0, -min(lam_min, 0.0))
+    return SESyncResult(
+        status=status, R=R.cpu().numpy(), t=t.cpu().numpy(), fxhat=fxhat,
+        sdp_val=sdp_val, lambda_min=lam_min, suboptimality_bound=bound,
+        rank=Y.shape[1])
+
+
+def certificate_sparse_full(meas: Measurements, Lam_blocks: np.ndarray):
+    """Sparse translation-explicit certificate S_full = M - blkdiag(0, Lam)
+    (host, scipy).
+
+    The PSD test runs on the certificate of the FULL (t-explicit) problem,
+    whose data matrix M is sparse: M = B^T B from the edge residual factor
+    (state X = [t; Y] with Y_i = R_i^T, F = 1/2 |B X|_F^2):
+
+        rt-row:  sqrt(tau)  (e_i^T t + t~^T Y_i - e_j^T t)     (1 row/edge)
+        rR-rows: sqrt(kappa)(R~^T Y_i - Y_j)                   (d rows/edge)
+
+    S_full >= 0 iff the simplified certificate S = Q - Lam >= 0. The
+    eta-SHIFTED accept does NOT transfer at the same eta: S_full >= -eta I
+    only proves S >= -eta (1 + |L^+ V|_2^2) I, so callers deflate eta by the
+    compression factor (`translation_compression`)."""
+    import scipy.sparse as sp
+    n, d, m = meas.num_poses, meas.d, len(meas)
+    i, j = meas.i, meas.j
+    sq_tau = np.sqrt(meas.tau)
+    sq_kap = np.sqrt(meas.kappa)
+    rows, cols, vals = [], [], []
+    e = np.arange(m)
+
+    def add(rr, cc, vv):
+        rows.append(np.broadcast_to(rr, vv.shape).ravel())
+        cols.append(np.broadcast_to(cc, vv.shape).ravel())
+        vals.append(vv.ravel())
+
+    # Translation rows: one per edge (row id e), unknown columns:
+    # t_i (col i), t_j (col j), Y_i rows (cols n + d*i .. n + d*i + d - 1).
+    add(e, i, sq_tau)
+    add(e, j, -sq_tau)
+    add(e[:, None], n + d * i[:, None] + np.arange(d)[None, :],
+        sq_tau[:, None] * meas.t)
+    # Rotation rows: d per edge (row ids m + d*e + a), R~^T Y_i - Y_j.
+    ra = m + d * e[:, None, None] + np.arange(d)[None, :, None]
+    add(ra, n + d * i[:, None, None] + np.arange(d)[None, None, :],
+        sq_kap[:, None, None] * np.swapaxes(meas.R, -1, -2))
+    add(m + d * e[:, None] + np.arange(d)[None, :],
+        n + d * j[:, None] + np.arange(d)[None, :],
+        np.broadcast_to(-sq_kap[:, None], (m, d)))
+    B = sp.coo_matrix(
+        (np.concatenate(vals),
+         (np.concatenate(rows), np.concatenate(cols))),
+        shape=(m * (1 + d), n * (1 + d))).tocsr()
+    M = (B.T @ B).tocsr()
+    Lam = sp.block_diag(
+        [sp.csr_matrix((n, n))] + [sp.csr_matrix(np.asarray(Lam_blocks[k]))
+                                   for k in range(n)], format="csr")
+    return (M - Lam).tocsc()
+
+
+def translation_compression(meas: Measurements, iters: int = 200,
+                            seed: int = 0, rtol: float = 1e-3) -> float:
+    """Estimate sigma^2 = |L_tau^+ V|_2^2, the factor by which negative
+    curvature of the simplified certificate S is compressed in the
+    translation-explicit S_full (host, scipy). Power iteration on
+    V^T L^-1 L^-1 V with a grounded sparse factorization of the
+    tau-Laplacian, run to a relative-change tolerance from TWO random
+    starts; returns the max."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    n, d = meas.num_poses, meas.d
+    i, j = meas.i, meas.j
+    L = sp.coo_matrix(
+        (np.concatenate([meas.tau, meas.tau, -meas.tau, -meas.tau]),
+         (np.concatenate([i, j, i, j]), np.concatenate([i, j, j, i]))),
+        shape=(n, n)).tocsc()
+    lu = spla.splu(L[1:, 1:].tocsc())
+
+    def V_apply(w):            # w [dn] -> [n]
+        Wb = w.reshape(n, d)
+        c = meas.tau * np.einsum("ea,ea->e", meas.t, Wb[i])
+        out = np.zeros(n)
+        np.add.at(out, i, c)
+        np.add.at(out, j, -c)
+        return out
+
+    def Vt_apply(u):           # u [n] -> [dn]
+        s = meas.tau * (u[i] - u[j])
+        out = np.zeros((n, d))
+        np.add.at(out, i, s[:, None] * meas.t)
+        return out.ravel()
+
+    def power_iter(start_seed):
+        rng = np.random.default_rng(start_seed)
+        w = rng.standard_normal(n * d)
+        w /= np.linalg.norm(w)
+        sig2 = 0.0
+        for _ in range(iters):
+            u = V_apply(w)                                   # V w
+            z = np.concatenate([[0.0], lu.solve(u[1:])])     # L^+ (V w)
+            z -= z.mean()
+            z2 = np.concatenate([[0.0], lu.solve(z[1:])])    # L^+ L^+ (V w)
+            z2 -= z2.mean()
+            v = Vt_apply(z2)                                 # V^T L^-2 V w
+            nrm = np.linalg.norm(v)
+            if nrm == 0:
+                break
+            prev = sig2
+            sig2 = nrm
+            w = v / nrm
+            if prev > 0 and abs(sig2 - prev) <= rtol * sig2:
+                break
+        return float(sig2)
+
+    return max(power_iter(seed), power_iter(seed + 104729))
+
+
+def psd_accept_splu(S, eta: float):
+    """Cholesky-equivalent factorization of S + eta I on the host (SuperLU
+    in symmetric mode with diagonal pivoting only): if it completes with a
+    purely symmetric permutation and all U pivots positive, S + eta I is
+    positive definite.
+
+    Returns True (proved PSD within eta), False (a negative pivot: proved
+    indefinite at this shift), or None (row pivoting engaged / breakdown:
+    inconclusive, the caller falls back to the eigensolver)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    n = S.shape[0]
+    A = (S + eta * sp.identity(n, format="csc")).tocsc()
+    try:
+        lu = spla.splu(A, diag_pivot_thresh=0.0,
+                       permc_spec="MMD_AT_PLUS_A",
+                       options=dict(SymmetricMode=True))
+    except RuntimeError:
+        return None  # exactly singular pivot: inconclusive at this shift
+    pr = np.asarray(lu.perm_r)
+    pc = np.asarray(lu.perm_c)
+    if not np.array_equal(pr, pc):
+        return None  # row pivoting engaged: not an LDL^T, inconclusive
+    piv = lu.U.diagonal()
+    if np.all(piv > 0):
+        return True
+    return False
+
+
+def min_eig_arpack_deflated(apply_S_np, Y: np.ndarray, nd: int,
+                            tol: float = 1e-8, maxiter: int = None,
+                            ncv: int = 64, shift: float = None):
+    """lambda_min of the simplified certificate S restricted to span(Y)^perp
+    via ARPACK (scipy eigsh, host) on the deflation-shifted operator
+    S' = S + c YY^T. `apply_S_np` maps a numpy vector to a numpy vector.
+
+    Residual-honest: the returned (lamc, resid) come from one exact operator
+    application to the deflated-projected Ritz vector, so lamc - resid is a
+    defensible lower bound on the restricted lambda_min."""
+    import scipy.sparse.linalg as spla
+    Q, _ = np.linalg.qr(np.asarray(Y, np.float64))
+    if shift is None:
+        # Safe deflation shift: a few power iterations for |S|.
+        v = np.random.default_rng(0).standard_normal(nd)
+        v /= np.linalg.norm(v)
+        for _ in range(8):
+            w = apply_S_np(v)
+            nrm = np.linalg.norm(w)
+            if nrm == 0:
+                break
+            v = w / nrm
+        shift = 4.0 * max(nrm, 1.0)
+
+    # The target eigenvalue sits at ~0 for healthy certificates, where
+    # ARPACK's RELATIVE tolerance can never be met: offset the spectrum by
+    # -c0 so the target has magnitude ~c0 (removed again below).
+    c0 = 0.5 * shift
+
+    def mv(x):
+        return apply_S_np(x) + shift * (Q @ (Q.T @ x)) - c0 * x
+
+    op = spla.LinearOperator((nd, nd), matvec=mv, dtype=np.float64)
+    try:
+        w, V = spla.eigsh(op, k=1, which="SA", tol=tol,
+                          maxiter=maxiter, ncv=min(ncv, nd - 1))
+    except spla.ArpackNoConvergence as e:
+        # The partial Ritz pair is still usable: the bound charges the
+        # EXACT residual below.
+        if e.eigenvectors is None or e.eigenvectors.shape[1] == 0:
+            raise
+        V = e.eigenvectors
+    v = V[:, 0]
+    # Project out span(Y) drift and take an exact honest Rayleigh pair.
+    v = v - Q @ (Q.T @ v)
+    v /= np.linalg.norm(v)
+    Sv = apply_S_np(v)
+    lamc = float(v @ Sv)
+    res = Sv - lamc * v
+    res = res - Q @ (Q.T @ res)   # residual within the complement
+    return lamc, v, float(np.linalg.norm(res))
+
+
+def staged_lambda_bound(meas: Measurements, Lam, apply_S, Y, dtype,
+                        min_eig_tol: float, eta_psd: float = 1e-7,
+                        stats: dict | None = None,
+                        syncs: HostSyncs | None = None):
+    """Certificate bound in the reference's order: sparse Cholesky-
+    equivalent PSD accept on S_full first, an ARPACK deflated eigensolve on
+    failure, deflated LOBPCG with the sparse shift-invert Schur
+    preconditioner when ARPACK does not converge — all feeding the same
+    residual-honest 2x2 interaction bound as certificate_lambda_bound.
+
+    The accept shift is deflated by the translation compression factor:
+    eta_eff = min(eta_psd, tol/2 / (1 + 2 sigma_est^2)). When eta_eff sinks
+    below the factorization's own resolution (~1e3 eps |S|), the ARPACK
+    stage runs instead.
+
+    `apply_S` runs on the device; the ARPACK matvec and the Schur
+    preconditioner are host round trips, counted in `syncs` ("apply_S_host",
+    "schur_host"). `stats`, when given, receives the route taken
+    ("psd_accept", "arpack" or "lobpcg_schur"). Returns (lam_lb,
+    escape_vec_or_None, lamc_cons, eps); raises on eigensolver breakdown
+    (callers fall back to LOBPCG)."""
+    syncs = syncs or HostSyncs()
+    stats = {} if stats is None else stats
+    dev = Y.device
+    Y_np = Y.double().cpu().numpy()
+    Qo, _ = np.linalg.qr(Y_np)
+    eps = float(torch.linalg.norm(apply_S(
+        torch.as_tensor(Qo, dtype=dtype, device=dev))))
+
+    def bound(lamc_c):
+        return 0.5 * ((lamc_c - eps) - float(
+            np.sqrt((lamc_c + eps) ** 2 + 4.0 * eps ** 2)))
+
+    Sfull = certificate_sparse_full(meas, Lam.double().cpu().numpy())
+    sig2 = translation_compression(meas)
+    eta_eff = min(eta_psd, 0.5 * min_eig_tol / (1.0 + 2.0 * sig2))
+    fp_floor = 1e3 * np.finfo(np.float64).eps * abs(Sfull).max()
+    if eta_eff >= fp_floor and psd_accept_splu(Sfull, eta_eff) is True:
+        stats["route"] = "psd_accept"
+        lamc_c = -eta_eff * (1.0 + 2.0 * sig2)
+        return bound(lamc_c), None, lamc_c, eps
+
+    def apply_S_np(v):
+        syncs.note("apply_S_host", 1)
+        V = torch.as_tensor(v[:, None], dtype=dtype, device=dev)
+        return apply_S(V).double().cpu().numpy().ravel()
+
+    # Stage 2: a SHORT plain-Lanczos budget (ARPACK `maxiter` counts IRAM
+    # restarts of up to ncv matvecs each). Saddles and well-separated
+    # spectra converge within a few restarts; everything else falls through
+    # to the shift-invert stage quickly.
+    nd = Y_np.shape[0]
+    stats["route"] = "arpack"
+    try:
+        lamc, vec, resid = min_eig_arpack_deflated(
+            apply_S_np, Y_np, nd, tol=min(1e-8, min_eig_tol),
+            maxiter=30, ncv=96)
+        unconverged = resid > max(abs(lamc), min_eig_tol)
+    except Exception:
+        unconverged = True
+    if unconverged:
+        # Stage 3: deflated LOBPCG with the exact sparse shift-invert Schur
+        # preconditioner (clustered-at-zero spectra where unpreconditioned
+        # Lanczos cannot push the absolute residual below tol). The
+        # preconditioner only accelerates; the bound charges the exact
+        # residual.
+        stats["route"] = "lobpcg_schur"
+        delta = max(min_eig_tol, 10 * np.finfo(np.float64).eps
+                    * abs(Sfull).max())
+        pre_np = schur_shift_invert_precon(Sfull, meas.num_poses, nd, delta)
+
+        def pre(V):
+            syncs.note("schur_host", 1)
+            out = pre_np(V.double().cpu().numpy())
+            return torch.as_tensor(out, dtype=V.dtype, device=V.device)
+
+        lamc_t, vec_t, resid_t = min_eig_lobpcg(
+            apply_S, nd, 2, dtype, resid_tol=min_eig_tol, max_iters=2000,
+            deflate=torch.as_tensor(Y_np, dtype=dtype, device=dev),
+            precon=pre, syncs=syncs)
+        lamc, vec = float(lamc_t), vec_t.cpu().numpy()
+        resid = float(resid_t)
+        if resid > max(abs(lamc), min_eig_tol):
+            raise RuntimeError("certificate eigensolve unconverged "
+                               f"(lamc={lamc:.3e}, resid={resid:.3e})")
+    return (bound(lamc - resid), torch.as_tensor(vec, dtype=dtype,
+                                                 device=dev),
+            lamc - resid, eps)
+
+
+def schur_shift_invert_precon(Sfull, n: int, nd: int, delta: float):
+    """LOBPCG preconditioner T ~ (S + delta I)^-1 for the SIMPLIFIED
+    certificate from one sparse host factorization of S_full + delta I: by
+    the block-inverse identity, the rotation block of (S_full + delta I)^-1
+    is the inverse of the delta-shifted generalized Schur complement, which
+    is S + delta I up to O(delta)-coupling terms. Eigenvalues >> delta map
+    near 1, the near-zero cluster caps at 1/delta."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    A = (Sfull + delta * sp.identity(Sfull.shape[0], format="csc")).tocsc()
+    lu = spla.splu(A)
+
+    def apply_np(V):
+        V = np.asarray(V, np.float64)
+        rhs = np.zeros((n + nd, V.shape[1]))
+        rhs[n:] = V
+        out = lu.solve(rhs)
+        return np.ascontiguousarray(out[n:])
+
+    return apply_np
+
+
+def certify_solution(meas: Measurements, R: np.ndarray,
+                     min_eig_tol: float = 1e-5, dtype=torch.float64,
+                     lobpcg_iters: int = 300, precon: str | None = "auto",
+                     method: str = "auto", eta_psd: float = 1e-7,
+                     device=None, stats: dict | None = None):
+    """Certify a candidate SO(d)^n solution of the PGO problem (the SE-Sync
+    machinery applied to a DPGO output; the reference's fast_verification),
+    with the operator on the CUDA card unless `device` names another.
+
+    method="auto" runs staged_lambda_bound (PSD accept on the sparse
+    translation-explicit certificate, then ARPACK, then Schur-preconditioned
+    LOBPCG) and falls back to the deflated LOBPCG on breakdown;
+    method="lobpcg" forces the LOBPCG (`precon`: "chebyshev" opt-in,
+    "auto" -> none). `stats`, when given, receives the route, the host
+    syncs and round trips (`HostSyncs.loops`) and the seconds spent in
+    device operator applications ("apply_S_s", each followed by a device
+    synchronization) and in all. Returns (certified, lambda_min,
+    suboptimality_bound, fxhat)."""
+    t_start = time.perf_counter()
+    stats = {} if stats is None else stats
+    prob = build_sesync_problem(meas, dtype=dtype, device=device)
+    dev = prob.tau.device
+    n, d = prob.n, prob.d
+    Y = torch.as_tensor(np.swapaxes(np.asarray(R, np.float64), 1, 2)
+                        .reshape(n * d, d), dtype=dtype, device=dev)
+    Lam = prob.Lambda_blocks(Y)
+    timer = {"calls": 0, "s": 0.0}
+
+    def apply_S(V):
+        t0 = time.perf_counter()
+        out = prob.apply_S(Lam, V)
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        timer["calls"] += 1
+        timer["s"] += time.perf_counter() - t0
+        return out
+
+    fxhat = float(prob.objective(Y))
+    tr_lam = float(torch.sum(torch.diagonal(Lam, dim1=-2, dim2=-1)))
+
+    def finish(lam_min):
+        # f* >= tr(Lambda)/2 + (nd/2) min(0, lam_min); for a stationary
+        # candidate tr(Lambda) = <Q y, y> and the slack term vanishes.
+        bound = max(0.0, fxhat - 0.5 * tr_lam) \
+            + 0.5 * n * d * max(0.0, -min(lam_min, 0.0))
+        stats.update(apply_S_calls=timer["calls"], apply_S_s=timer["s"],
+                     seconds=time.perf_counter() - t_start,
+                     host_syncs=prob.syncs.count,
+                     loops={k: list(v) for k, v in prob.syncs.loops.items()})
+        return lam_min >= -min_eig_tol, lam_min, bound, fxhat
+
+    if method == "auto":
+        try:
+            lam_min, _, _, _ = staged_lambda_bound(
+                meas, Lam, apply_S, Y, dtype, min_eig_tol, eta_psd,
+                stats=stats, syncs=prob.syncs)
+            return finish(lam_min)
+        except Exception:
+            pass  # eigensolver breakdown: fall through to LOBPCG
+
+    stats["route"] = "lobpcg"
+    pre = None
+    if precon == "chebyshev":
+        from dpgo_tpu_torch.ops.eigen import lanczos_extreme
+
+        def mv_np(v):
+            prob.syncs.note("apply_S_host", 1)
+            V = torch.as_tensor(v[:, None], dtype=dtype, device=dev)
+            return apply_S(V).double().cpu().numpy().ravel()
+
+        lam_max, _ = lanczos_extreme(mv_np, n * d, which="max", tol=1e-3,
+                                     seed=3)
+        pre = chebyshev_precon(apply_S, 1.05 * lam_max)
+    lam_min, _, lamc, eps = certificate_lambda_bound(
+        apply_S, Y, 1, dtype, min_eig_tol, iters=lobpcg_iters, precon=pre,
+        syncs=prob.syncs)
+    return finish(lam_min)

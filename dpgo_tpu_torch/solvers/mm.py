@@ -485,25 +485,29 @@ def resolve_preconditioner(probs: NodeProblem, opts: MMOptions) -> str:
 
 def _tnt_batch(probs: NodeProblem, t0, R0, g_t, g_R, params: TNTParams,
                t_anchor, anchor, precon: str = "dense",
-               syncs: HostSyncs | None = None, lanes=None):
+               syncs: HostSyncs | None = None, lanes=None,
+               record: bool = False):
     """Batched TNT with the model of the problems' regime (dense, coupled
-    on the segment path, else R-space); returns (t, R, G value at result)."""
+    on the segment path, else R-space); returns (t, R, G value at result),
+    plus the TNTHistory when `record=True`."""
     if probs.dense:
         anchor = (anchor[0], probs.to_tall(anchor[1]), anchor[2])
         model = _make_tnt_model_dense(probs, g_t, probs.to_tall(g_R),
                                       t_anchor, anchor, params, precon=precon,
                                       syncs=syncs)
-        x, fx, _, _ = tnt_generic(model, (t0, probs.to_tall(R0)), params,
-                                  syncs=syncs, lanes=lanes)
-        return x[0], probs.from_tall(x[1]), fx
-    if probs.seg:
-        model = _make_tnt_model_coupled(probs, g_t, g_R, anchor)
+        out = tnt_generic(model, (t0, probs.to_tall(R0)), params,
+                          syncs=syncs, lanes=lanes, record=record)
+        x = (out[0][0], probs.from_tall(out[0][1]))
     else:
-        model = _make_tnt_model(probs, g_t, g_R, None, t_anchor, precon,
-                                anchor=anchor, syncs=syncs)
-    x, fx, _, _ = tnt_generic(model, (t0, R0), params, syncs=syncs,
-                              lanes=lanes)
-    return x[0], x[1], fx
+        if probs.seg:
+            model = _make_tnt_model_coupled(probs, g_t, g_R, anchor)
+        else:
+            model = _make_tnt_model(probs, g_t, g_R, None, t_anchor, precon,
+                                    anchor=anchor, syncs=syncs)
+        out = tnt_generic(model, (t0, R0), params, syncs=syncs, lanes=lanes,
+                          record=record)
+        x = out[0]
+    return (x[0], x[1], out[1]) + ((out[4],) if record else ())
 
 
 def _masked_tnt(probs, t0, R0, g_t, g_R, mask, params: TNTParams,
@@ -519,6 +523,51 @@ def _masked_tnt(probs, t0, R0, g_t, g_R, mask, params: TNTParams,
                             anchor, precon=precon, syncs=syncs, lanes=mask)
     return sel(mask, tn, t0), sel(mask, Rn, R0), torch.where(mask, fx,
                                                              fallback_G)
+
+
+def refine_probe(probs: NodeProblem, st: MMState, opts: MMOptions,
+                 syncs: HostSyncs | None = None):
+    """Re-run the AMM step's TNT refinement for the current state with
+    per-outer-iteration recording (the reference's TNTResult series): the
+    profiling window into the refined path's cost.
+
+    Replays iterate_amm's extrapolation and proximal step to rebuild the
+    TNT inputs of the next step, then runs the batched TNT with record=True
+    for ALL nodes (ignoring the refinement gate, which is returned so the
+    caller can mask). Returns (refined_mask [N] bool, TNTHistory with a
+    leading node axis). Diagnostic only, not on the step's path."""
+    syncs = syncs or HostSyncs()
+    gamma = st.gamma
+
+    def extrap(cur, prev):
+        g = gamma.reshape((-1,) + (1,) * (cur.dim() - 1))
+        return cur + g * (cur - prev)
+
+    Y = NodeState(t=extrap(st.Z.t, st.Z_prev.t), R=extrap(st.Z.R, st.Z_prev.R),
+                  th=extrap(st.Z.th, st.Z_prev.th),
+                  Rh=extrap(st.Z.Rh, st.Z_prev.Rh))
+    if probs.loss is Loss.TRIVIAL:
+        g_t_ex = extrap(st.g_t, st.g_t_prev)
+        g_R_ex = extrap(st.g_R, st.g_R_prev)
+        Df_t_ex = extrap(st.Df_t, st.Df_t_prev)
+        Df_R_ex = extrap(st.Df_R, st.Df_R_prev)
+    else:
+        g_t_ex, g_R_ex = probs.surrogate_g(Y)
+        Df_t_ex, Df_R_ex = probs.euclidean_Df(Y, (g_t_ex, g_R_ex))
+
+    refined = (((st.gradFnorm * st.gradFnorm / st.fobj) > opts.accepted_delta)
+               | (st.num_osc >= opts.max_oscillations))
+    _, th_R = probs.proximal(Y, (Df_t_ex, Df_R_ex))
+    t_c = probs.recover_translations(th_R, g_t_ex, Y.t, syncs)
+
+    params = opts.tnt
+    if params.max_iterations <= 0:
+        params = dataclasses.replace(params, max_iterations=10)
+    *_, hist = _tnt_batch(probs, t_c, th_R, g_t_ex, g_R_ex, params,
+                          t_anchor=Y.t, anchor=(st.Z.t, st.Z.R, st.fobj),
+                          precon=resolve_preconditioner(probs, opts),
+                          syncs=syncs, record=True)
+    return refined, hist
 
 
 # -------------------------------------------------------------------- iterate

@@ -9,6 +9,15 @@ coupled (t, R) model, tuples of them), and scalars are [N] tensors. Each lane
 stops on its own condition and keeps its state after that (the vmapped
 while_loop's semantics); the loops run in Python and read their continuation
 flag on the host once per trip (`HostSyncs`).
+
+The global polish and the SE-Sync staircase solve one problem (x = (t, R) or
+Y without a node axis): `tnt_one` runs such a model as a batch of one.
+
+Instrumentation: `record=True` returns a TNTHistory of per-outer-iteration
+(f, |grad|, |Pgrad|, Delta, inner CG iterations, step M-norm, rho, accepted)
+ring buffers; `user_fn` is called on the host once per outer iteration and
+lane with the same quantities, and its True return ends that lane's solve
+(the reference's TNTUserFunction).
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from dpgo_tpu_torch.ops.stpcg import ip, sel, stpcg_loop, stpcg_target
@@ -74,6 +84,37 @@ class TNTModel(NamedTuple):
     precon_spans_full_space: bool = True
 
 
+class TNTHistory(NamedTuple):
+    """Per-outer-iteration series, ring buffers [N, max_iterations] whose
+    entries [:count] are valid (count [N] int32): the reference's TNTResult
+    vectors."""
+
+    fx: torch.Tensor          # objective BEFORE the iteration's step
+    gradnorm: torch.Tensor
+    pgradnorm: torch.Tensor
+    Delta: torch.Tensor
+    inner_iterations: torch.Tensor  # STPCG iteration count (int32)
+    h_M_norm: torch.Tensor    # step norm in the preconditioner metric
+    rho: torch.Tensor         # gain ratio
+    accepted: torch.Tensor    # bool
+    count: torch.Tensor
+
+
+def _empty_history(N: int, m: int, dtype, dev) -> TNTHistory:
+    def z(dt=dtype):
+        return torch.zeros((N, m), dtype=dt, device=dev)
+
+    return TNTHistory(fx=z(), gradnorm=z(), pgradnorm=z(), Delta=z(),
+                      inner_iterations=z(torch.int32), h_M_norm=z(), rho=z(),
+                      accepted=z(torch.bool),
+                      count=torch.zeros(N, dtype=torch.int32, device=dev))
+
+
+def _leaf(x) -> torch.Tensor:
+    """The first tensor of a variable (a tensor or nested tuples of them)."""
+    return _leaf(x[0]) if isinstance(x, tuple) else x
+
+
 def stpcg(grad, hess_vp, precon, Delta, params: TNTParams, v0,
           active=None, syncs: HostSyncs | None = None):
     """Steihaug-Toint truncated preconditioned CG, batched.
@@ -99,6 +140,7 @@ class TNTState:
     k: torch.Tensor
     accepted: torch.Tensor
     done: torch.Tensor
+    hist: TNTHistory | None = None
 
     def select(self, pred: torch.Tensor, other: "TNTState") -> "TNTState":
         """Per lane: self where pred, else other."""
@@ -113,22 +155,32 @@ class TNTState:
             Delta=torch.where(pred, self.Delta, other.Delta),
             k=torch.where(pred, self.k, other.k),
             accepted=torch.where(pred, self.accepted, other.accepted),
-            done=torch.where(pred, self.done, other.done))
+            done=torch.where(pred, self.done, other.done),
+            hist=(None if self.hist is None else TNTHistory(
+                *(sel(pred, a, b) for a, b in zip(self.hist, other.hist)))))
 
 
-def tnt_generic(model: TNTModel, x0: tuple, params: TNTParams,
+def tnt_generic(model: TNTModel, x0, params: TNTParams,
                 syncs: HostSyncs | None = None,
-                lanes: torch.Tensor | None = None):
-    """Run TNT from the batched variable x0 (TNT.h:422-640).
+                lanes: torch.Tensor | None = None, record: bool = False,
+                user_fn: Callable | None = None):
+    """Run TNT from the batched variable x0, a tensor or a tuple of tensors
+    with a leading node axis (TNT.h:422-640).
 
     `lanes` [N] bool marks the nodes whose result the caller keeps; the
     others are treated as finished from the start (the JAX package computes
-    them and discards the result). Returns (x, fx, gradnorm, num_accepted).
+    them and discards the result). Returns (x, fx, gradnorm, num_accepted),
+    plus a TNTHistory as a fifth element when `record=True`.
+    `user_fn(**stats) -> bool` is called on the host once per outer
+    iteration of each lane that ran it, with keyword stats (k, fx, gradnorm,
+    pgradnorm, Delta, inner_iterations, h_M_norm, rho, accepted, all 0-d
+    numpy); True ends that lane's solve after the current iteration.
     """
     syncs = syncs or HostSyncs()
-    dtype = x0[0].dtype
-    N = x0[0].shape[0]
-    dev = x0[0].device
+    leaf = _leaf(x0)
+    dtype = leaf.dtype
+    N = leaf.shape[0]
+    dev = leaf.device
     sqrt_eps = torch.finfo(dtype).eps ** 0.5
     live = (torch.ones(N, dtype=torch.bool, device=dev) if lanes is None
             else lanes)
@@ -148,7 +200,9 @@ def tnt_generic(model: TNTModel, x0: tuple, params: TNTParams,
         Delta=torch.full((N,), params.Delta0, dtype=dtype, device=dev),
         k=torch.zeros(N, dtype=torch.int32, device=dev),
         accepted=torch.zeros(N, dtype=torch.int32, device=dev),
-        done=~live)
+        done=~live,
+        hist=(_empty_history(N, max(params.max_iterations, 1), dtype, dev)
+              if record else None))
 
     def step_core(st: TNTState, running: torch.Tensor) -> TNTState:
         # Noise-floor guard: the first CG step's model decrease is
@@ -209,6 +263,42 @@ def tnt_generic(model: TNTModel, x0: tuple, params: TNTParams,
         keep = ~grad_small
         took = keep & step_ok
         done = grad_small | stop_rel | stop_step | stop_delta
+
+        hist = st.hist
+        if record:
+            # Lanes at k = max_iterations are not running; their write is
+            # clamped in range and discarded by the caller's select.
+            i = st.k.clamp(max=hist.fx.shape[1] - 1).long()[:, None]
+
+            def upd(a, v):
+                old = a.gather(1, i)[:, 0]
+                return a.scatter(1, i, torch.where(keep, v.to(a.dtype),
+                                                   old)[:, None])
+
+            hist = TNTHistory(
+                fx=upd(hist.fx, st.fx),
+                gradnorm=upd(hist.gradnorm, st.gradnorm),
+                pgradnorm=upd(hist.pgradnorm, st.pgradnorm),
+                Delta=upd(hist.Delta, st.Delta),
+                inner_iterations=upd(hist.inner_iterations, inner_k),
+                h_M_norm=upd(hist.h_M_norm, h_M_norm),
+                rho=upd(hist.rho, rho),
+                accepted=upd(hist.accepted, took),
+                count=hist.count + keep.to(torch.int32))
+
+        if user_fn is not None:
+            live_user = (keep & running).cpu().numpy()
+            stats = dict(k=st.k, fx=fx_new, gradnorm=st.gradnorm,
+                         pgradnorm=st.pgradnorm, Delta=Delta_new,
+                         inner_iterations=inner_k, h_M_norm=h_M_norm,
+                         rho=rho, accepted=took)
+            stats = {n: v.cpu().numpy() for n, v in stats.items()}
+            stop = np.zeros(N, dtype=bool)
+            for a in np.flatnonzero(live_user):
+                stop[a] = bool(user_fn(**{n: v[a] for n, v in
+                                          stats.items()}))
+            done = done | torch.as_tensor(stop, device=dev)
+
         return TNTState(
             x=sel(keep, x_new, st.x),
             fx=torch.where(keep, fx_new, st.fx),
@@ -217,7 +307,7 @@ def tnt_generic(model: TNTModel, x0: tuple, params: TNTParams,
             Delta=torch.where(keep, Delta_new, st.Delta),
             k=st.k + 1,
             accepted=st.accepted + took.to(torch.int32),
-            done=done)
+            done=done, hist=hist)
 
     def body(st: TNTState, running: torch.Tensor) -> TNTState:
         # Iterations >= 2 refresh the derivatives of the current iterate
@@ -242,6 +332,8 @@ def tnt_generic(model: TNTModel, x0: tuple, params: TNTParams,
             if not syncs.flag(running.any()):
                 break
             out = body(out, running).select(running, out)
+    if record:
+        return out.x, out.fx, out.gradnorm, out.accepted, out.hist
     return out.x, out.fx, out.gradnorm, out.accepted
 
 
@@ -252,3 +344,57 @@ def tnt(model: TNTModel, t0, R0, params: TNTParams,
     x, fx, gn, acc = tnt_generic(model, (t0, R0), params, syncs=syncs,
                                  lanes=lanes)
     return x[0], x[1], fx, gn, acc
+
+
+# ----------------------------------------------------- single problems
+
+
+def _add_axis(x):
+    if isinstance(x, tuple):
+        return tuple(_add_axis(u) for u in x)
+    return x[None]
+
+
+def _strip_axis(x):
+    if isinstance(x, tuple):
+        return tuple(_strip_axis(u) for u in x)
+    return x[0]
+
+
+def _batch_of_one(model: TNTModel) -> TNTModel:
+    """A model over one problem (variable and tangents: tensors or tuples of
+    tensors without a node axis, objective a 0-d tensor) as a model over a
+    batch of one."""
+    def objective(x):
+        return model.objective(_strip_axis(x)).reshape(1)
+
+    def grad_and_nabla(x):
+        return _add_axis(model.grad_and_nabla(_strip_axis(x)))
+
+    def hess_vp(x, nabla, v):
+        return _add_axis(model.hess_vp(_strip_axis(x), _strip_axis(nabla),
+                                       _strip_axis(v)))
+
+    def precondition(x, v):
+        return _add_axis(model.precondition(_strip_axis(x), _strip_axis(v)))
+
+    def retract(x, h):
+        return _add_axis(model.retract(_strip_axis(x), _strip_axis(h)))
+
+    return TNTModel(objective=objective, grad_and_nabla=grad_and_nabla,
+                    hess_vp=hess_vp, precondition=precondition,
+                    retract=retract,
+                    precon_spans_full_space=model.precon_spans_full_space)
+
+
+def tnt_one(model: TNTModel, x0, params: TNTParams,
+            syncs: HostSyncs | None = None, record: bool = False,
+            user_fn: Callable | None = None):
+    """tnt_generic on one problem (`_batch_of_one`): returns (x, fx,
+    gradnorm, num_accepted) without the node axis, plus the TNTHistory
+    ([max_iterations] buffers, 0-d count) when `record=True`."""
+    out = tnt_generic(_batch_of_one(model), _add_axis(x0), params,
+                      syncs=syncs, record=record, user_fn=user_fn)
+    out = (_strip_axis(out[0]),) + tuple(v[0] for v in out[1:4]) + (
+        (TNTHistory(*(v[0] for v in out[4])),) if record else ())
+    return out

@@ -26,8 +26,12 @@ class HostSyncs:
     for the device. The solver owns one counter and reports syncs per step.
 
     `loops` holds, per host-driven loop that reports to it by name
-    ("seg_cg": the segment path's translation CG, "stpcg": the torch STPCG),
-    [times entered, trips in all].
+    ("seg_cg": the segment path's translation CG, "stpcg": the torch STPCG,
+    "lobpcg": the certificate's eigensolver), [times entered, trips in all];
+    the certificate's host round trips report there too, one trip each
+    ("lred_host": the host SuperLU solve inside S above the dense limit,
+    "apply_S_host": an ARPACK matvec, "schur_host": the shift-invert
+    preconditioner).
     """
 
     def __init__(self):

@@ -71,9 +71,7 @@ def test_cli_matches_jax_cli(g2o, tmp_path, monkeypatch, solver,
     np.testing.assert_allclose(te, je, atol=1e-8)
 
 
-@pytest.mark.parametrize("flag", [["--pcm"], ["--pcm_stream", "4"],
-                                  ["--certify"], ["--polish", "3"],
-                                  ["--lm_polish"]])
+@pytest.mark.parametrize("flag", [["--pcm"], ["--pcm_stream", "4"]])
 def test_cli_refuses_flags_not_ported(tmp_path, monkeypatch, flag):
     """A flag of a later slice exits non-zero with "not ported yet" before
     the dataset is even read, and writes nothing."""
@@ -86,6 +84,111 @@ def test_cli_refuses_flags_not_ported(tmp_path, monkeypatch, flag):
     assert exc.value.code not in (0, None)
     assert "not ported yet" in str(exc.value.code)
     assert os.listdir(tmp_path) == []
+
+
+def _certification(out):
+    """(verdict, lambda_min, bound) of the CLI's certification line."""
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("certification:"))
+    verdict = "GLOBAL OPT" if "GLOBAL OPT" in line else "uncertified"
+    nums = dict(kv.split("=") for kv in line.split() if "=" in kv)
+    return verdict, float(nums["lambda_min"]), float(
+        nums["suboptimality_bound"])
+
+
+@pytest.fixture(scope="module")
+def chain_runs(g2o, tmp_path_factory):
+    """Both packages' cli.main with --polish 3 --lm_polish --certify after 10
+    iterations (f64, centralized chordal start; the polish's CG capped at 12
+    iterations, where the two packages' CG still agree to rounding, see
+    tests/test_torch_polish.py): {package: (result rows, estimates, standard
+    output)}."""
+    import contextlib
+    import io
+
+    from dpgo_tpu.cli import main as jax_main
+
+    from dpgo_tpu_torch.cli import main
+
+    args = ["--dataset", g2o, "--num_nodes", "2", "--iters", "10",
+            "--record_every", "5", "--dist_init", "false", "--polish", "3",
+            "--polish_tcg", "12", "--lm_polish", "--certify"]
+    out = {}
+    here = os.getcwd()
+    for pkg, fn in (("jax", jax_main), ("torch", main)):
+        wd = tmp_path_factory.mktemp(pkg)
+        buf = io.StringIO()
+        try:
+            os.chdir(wd)
+            with contextlib.redirect_stdout(buf):
+                fn(args + (["--device", "cpu"] if pkg == "torch" else []))
+        finally:
+            os.chdir(here)
+        out[pkg] = (_rows(wd / "results_chordal_2_amm.txt"),
+                    _rows(wd / "estimates_trivial.txt"), buf.getvalue())
+    return out
+
+
+@pytest.mark.parametrize("flag", ["--polish", "--lm_polish", "--certify"])
+def test_cli_polish_and_certify_match_jax_cli(chain_runs, flag):
+    """--polish, --lm_polish and --certify, run in that order after the MM
+    iterations by the port's CLI and the JAX package's: the same result rows
+    (iterations 0, 5, 10, then the polish row and the LM row; 2f within
+    rtol 1e-9; 2|grad| within rtol 1e-9, on the LM row both below 1e-8, the
+    rounding floor at the optimum LM reaches from either start) and
+    estimates (atol 1e-8); per flag: its row lowers 2f (LM: not above the
+    polish), and the certification lines give the same verdict (GLOBAL
+    OPT), lambda_min and bound within 1e-6 of the JAX CLI's."""
+    (jr, je, jout), (tr, te, tout) = chain_runs["jax"], chain_runs["torch"]
+    assert tr.shape == jr.shape == (5, 4)
+    np.testing.assert_array_equal(tr[:, 0], [0, 5, 10, 10, 10])
+    np.testing.assert_allclose(tr[:, 2], jr[:, 2], rtol=1e-9)
+    np.testing.assert_allclose(tr[:4, 3], jr[:4, 3], rtol=1e-9)
+    assert tr[4, 3] < 1e-8 and jr[4, 3] < 1e-8
+    np.testing.assert_allclose(te, je, atol=1e-8)
+    if flag == "--polish":
+        assert "polish(3):" in tout and tr[3, 2] < tr[2, 2]
+    elif flag == "--lm_polish":
+        assert "lm_polish(" in tout and tr[4, 2] <= tr[3, 2] * (1 + 1e-12)
+    else:
+        jv, jl, jb = _certification(jout)
+        tv, tl, tb = _certification(tout)
+        assert tv == jv == "GLOBAL OPT"
+        assert abs(tl - jl) <= 1e-6 and abs(tb - jb) <= 1e-6
+
+
+def test_cli_lm_polish_refuses_robust_loss(g2o, tmp_path, monkeypatch):
+    """--lm_polish with a robust loss exits non-zero before the solve (the
+    host LM models the trivial loss only) and writes nothing."""
+    from dpgo_tpu_torch.cli import main
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit) as exc:
+        main(["--dataset", g2o, "--num_nodes", "2", "--device", "cpu",
+              "--lm_polish", "--loss", "huber"])
+    assert "trivial loss" in str(exc.value.code)
+    assert os.listdir(tmp_path) == []
+
+
+def test_sesync_cli_matches_jax(g2o, capsys):
+    """sesync_cli.main of both packages on one .g2o file: the same status
+    line, SDP value and rounded value (printed to 12 digits)."""
+    from dpgo_tpu.sesync_cli import main as jax_main
+
+    from dpgo_tpu_torch.sesync_cli import main
+
+    lines = {}
+    for pkg, fn, extra in (("jax", jax_main, []),
+                           ("torch", main, ["--device", "cpu"])):
+        capsys.readouterr()
+        fn(["--dataset", g2o] + extra)
+        lines[pkg] = {ln.split(":")[0]: ln for ln in
+                      capsys.readouterr().out.splitlines() if ":" in ln}
+    j, t = lines["jax"], lines["torch"]
+    assert t["status"].split("(")[0] == j["status"].split("(")[0]
+    assert "GlobalOpt" in t["status"] and "rank 3" in t["status"]
+    assert t["SDP value (2x)"] == j["SDP value (2x)"]
+    assert t["rounded F (2x)"] == j["rounded F (2x)"]
 
 
 @pytest.mark.parametrize("solver", ["hash", "star"])

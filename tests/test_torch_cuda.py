@@ -6,6 +6,7 @@ imports neither jax nor dpgo_tpu, so it also runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import copy
 import dataclasses
 import os
 
@@ -500,3 +501,79 @@ def test_forced_segment_matches_dense_path_at_real_scale(dev):
     np.testing.assert_allclose(fs, fd, rtol=1e-6)
     np.testing.assert_allclose(gs, gd, rtol=1e-3)
     assert seg.syncs.loops["seg_cg"][0] >= 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_polish_on_the_card_matches_plain(dev, dtype):
+    """DPGOSolver.polish on the card (grid3D_synth, 4 nodes, refinement
+    off, from the state after 10 steps, the rigid coarse level on): K2 in
+    the solver's type is launched during the polish, 2f decreases, and the
+    same polish with K2's plain version agrees (float64: 2f within rtol
+    1e-10; float32: 1e-5)."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.ops.polar_so3_cuda import Launches
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    from dpgo_tpu_torch.solvers.tnt import TNTParams
+
+    s = DPGOSolver(_grid3d(), num_nodes=4, dtype=dtype, device=dev,
+                   opts=MMOptions(tnt=TNTParams(max_iterations=0)))
+    st, _ = s.run_steps(s.initialize(), 0, 10)
+    f0 = float(s._metrics(st)[0])
+    before = Launches.by_dtype[dtype]
+    _, f2 = s.polish(st, outer=5, tcg=50, coarse=True)
+    assert Launches.by_dtype[dtype] > before
+    assert f2 < f0
+    twin = copy.copy(s)
+    twin.probs = dataclasses.replace(s.probs, kernels=False)
+    count = Launches.count
+    _, f2p = twin.polish(st, outer=5, tcg=50, coarse=True)
+    assert Launches.count == count
+    np.testing.assert_allclose(
+        f2, f2p, rtol=1e-10 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_certify_on_the_card_matches_cpu(dev):
+    """certify_solution with the operator on the card gives the CPU run's
+    verdict and lambda_min (within 1e-6) on grid3D_synth's LM-polished
+    estimate, and on a negative control (poses 100-199 turned 0.5 rad about
+    z) rejects it like the CPU run."""
+    from dpgo_tpu_torch.sesync import (chordal_initialization,
+                                       recover_translations_global)
+    from dpgo_tpu_torch.sesync.staircase import certify_solution
+    from dpgo_tpu_torch.solvers.host_lm import lm_polish
+
+    meas = _grid3d()
+    R0 = chordal_initialization(meas)
+    R = lm_polish(meas, recover_translations_global(meas, R0), R0).R
+    th = 0.5
+    turn = np.array([[np.cos(th), -np.sin(th), 0.0],
+                     [np.sin(th), np.cos(th), 0.0], [0.0, 0.0, 1.0]])
+    R_bad = R.copy()
+    R_bad[100:200] = turn @ R_bad[100:200]
+    for cand, want in ((R, True), (R_bad, False)):
+        ok_c, lam_c, _, fx_c = certify_solution(meas, cand, device=dev)
+        ok_h, lam_h, _, fx_h = certify_solution(meas, cand, device="cpu")
+        assert ok_c == ok_h == want
+        assert abs(lam_c - lam_h) <= 1e-6 * max(1.0, abs(lam_h))
+        np.testing.assert_allclose(fx_c, fx_h, rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_round_solution_launches_k2_f64(dev):
+    """SESyncProblem.round_solution on the card projects through K2's
+    float64 instantiation and agrees with its plain version (1e-12)."""
+    from dpgo_tpu_torch.ops.polar_so3_cuda import Launches
+    from dpgo_tpu_torch.sesync import chordal_initialization
+    from dpgo_tpu_torch.sesync.problem import build_sesync_problem
+
+    meas = _grid3d()
+    p = build_sesync_problem(meas, device=dev)
+    R0 = chordal_initialization(meas)
+    Y = torch.as_tensor(np.swapaxes(R0, 1, 2).reshape(-1, 3), device=dev)
+    before = Launches.by_dtype[torch.float64]
+    R = p.round_solution(Y)
+    assert Launches.by_dtype[torch.float64] == before + 1
+    Rp = dataclasses.replace(p, kernels=False).round_solution(Y)
+    np.testing.assert_allclose(R.cpu().numpy(), Rp.cpu().numpy(), atol=1e-12)

@@ -361,26 +361,35 @@ def test_choose_cluster_size_raises_when_nothing_fits():
         choose_cluster_size(16, 640, {1: 0, 2: 0, 4: 0, 8: 0})
 
 
-@pytest.mark.parametrize("entry", ["DPGOSolver", "build_node_problems"])
+@pytest.mark.parametrize("entry", ["DPGOSolver", "build_node_problems",
+                                   "EdgeData.from_measurements",
+                                   "build_sesync_problem"])
 def test_entry_points_default_to_the_card(entry):
-    """DPGOSolver and build_node_problems without `device` build on the
-    CUDA card; on a host without one they raise instead of building on the
-    CPU."""
+    """DPGOSolver, build_node_problems, EdgeData.from_measurements and
+    build_sesync_problem without `device` build on the CUDA card; on a host
+    without one they raise instead of building on the CPU."""
     from dpgo_tpu_torch.driver import DPGOSolver
     from dpgo_tpu_torch.graph import build_multigraph
+    from dpgo_tpu_torch.objective import EdgeData
     from dpgo_tpu_torch.problem import build_node_problems
+    from dpgo_tpu_torch.sesync.problem import build_sesync_problem
 
     meas = _torch_meas(random_pose_graph(np.random.default_rng(1),
                                          num_poses=12, d=3,
                                          loop_closures=4)[0])
 
     def build():
+        """A tensor of what the entry point built."""
         if entry == "DPGOSolver":
-            return DPGOSolver(meas, num_nodes=2).probs
-        return build_node_problems(build_multigraph(meas, 2)[2])
+            return DPGOSolver(meas, num_nodes=2).probs.Hred_d
+        if entry == "EdgeData.from_measurements":
+            return EdgeData.from_measurements(meas).tau
+        if entry == "build_sesync_problem":
+            return build_sesync_problem(meas).tau
+        return build_node_problems(build_multigraph(meas, 2)[2]).Hred_d
 
     if torch.cuda.is_available():
-        assert build().Hred_d.device.type == "cuda"
+        assert build().device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
@@ -464,7 +473,8 @@ def test_problem_ops_match_jax_on_converted_state(jax_run, rng):
 
     t, R = s.gather_global(st)
     edges = to.EdgeData.from_measurements(_torch_meas(meas),
-                                          node_of=s.part.node_of)
+                                          node_of=s.part.node_of,
+                                          device="cpu")
     tt, tR = torch.tensor(np.asarray(t)), torch.tensor(np.asarray(R))
     np.testing.assert_allclose(float(to.evaluate_f(edges, tt, tR)),
                                float(jo.evaluate_f(s.edges, t, R)), **tol)
