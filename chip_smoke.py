@@ -76,8 +76,31 @@ TNT preset, 16 nodes, float32, 150 iterations:
    - sesync_grid: `sesync_cli.main` on grid3D_synth: GlobalOpt at rank 3,
      2 SDP within 1e-8 of GRID3D_SDP_2F.
 
-Paths 1-5 and 7 are checked against the same path run with the kernels'
-plain versions on the card, and against the exact global objective.
+9. PCM and Anderson acceleration (run after path 6, before 8):
+   - pcm_rim: rim_synth with every tenth inter-node edge an outlier (53,
+     drawn from SEED), the centralized chordal start of that graph, then
+     `pcm_filter` and `pcm_filter_incremental(batch=5)` with their loop
+     errors on the card in float64 at tolerance 3.0 and at the CLI's 0.2:
+     each keep mask held equal to the same call on the CPU, the cliques
+     held to the native C++ route (built from `native/` into the port's
+     build directory), no outlier kept by the batch filter at 3.0 (the JAX
+     package on a CPU keeps 0 of 53 and drops 143 of 474 inliers). Then
+     the filtered graph through AMM-PGO#, refined preset, trivial loss,
+     150 steps (K1 and K2), its estimate's 2f on the clean rim graph
+     printed beside the rim path's and RIM_CERTIFIED_2F, and the rim
+     path's estimate scored on the filtered graph.
+   - aa_rim: rim_synth through `MMOptions(scheme="aa")` (Anderson
+     acceleration, defaults), 150 steps: K2 only; 2f never rises by more
+     than 1e-5 of itself (the monotone safeguard).
+   - cli_pcm: `cli.main` on the corrupted graph written to a temporary
+     .g2o, `--num_nodes 16 --pcm --pcm_tolerance 3.0 --pcm_stream 5 --f32
+     --iters 30` (DChordal start): its "PCM kept" line held to the count
+     the streamed filter gives on the read-back graph, the result files
+     written.
+
+Paths 1-5, 7 and pcm_rim / aa_rim are checked against the same path run
+with the kernels' plain versions on the card, and against the exact global
+objective.
 
 Each K1 phase holds the kernel against its plain version at every cluster
 size the card admits for the phase's shape (C CTAs per node, C in 1, 2, 4,
@@ -138,6 +161,9 @@ POLISH_100K_OUTER, POLISH_100K_TCG = 3, 100
 # with rim100k_robust's, 60 -> 40, and rim_edgewise's, 150 -> 100, to keep
 # the whole run well inside its time limit).
 REFINED_100K_STEPS = 50
+# PCM on the outlier rim graph (pcm_rim, cli_pcm): tolerance and the
+# incremental pipeline's batch.
+PCM_TOL, PCM_BATCH = 3.0, 5
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
 # bandwidth, float32 and float64 outside the tensor cores (the kernels'
 # types).
@@ -923,6 +949,199 @@ def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
                             "card": card}
 
 
+def pcm_aa_paths(root, dev, card, make_solver, rim, rim_est, paths,
+                 launches, to_profile):
+    """PCM and Anderson acceleration (module docstring, 9): fills `paths`,
+    `launches` and `to_profile` for pcm_rim, aa_rim and cli_pcm. `rim_est`
+    is the rim path's float32 (t, R) after its steps."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from dpgo_tpu_torch import cli
+    from dpgo_tpu_torch.graph import make_partition
+    from dpgo_tpu_torch.io import native
+    from dpgo_tpu_torch.io.g2o import read_g2o_file, write_g2o_file
+    from dpgo_tpu_torch.objective import EdgeData, evaluate_f
+    from dpgo_tpu_torch.pcm import (CliqueRoutes, PCMOptions, pcm_filter,
+                                    pcm_filter_incremental)
+    from dpgo_tpu_torch.sesync import (chordal_initialization,
+                                       recover_translations_global)
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    from dpgo_tpu_torch.synthetic import with_outliers
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    # pcm_rim: rim with every tenth inter-node edge an outlier, the
+    # centralized chordal start of the corrupted graph, both PCM pipelines.
+    meas, bad = with_outliers(rim, np.random.default_rng(SEED), NUM_NODES)
+    part = make_partition(meas.num_poses, NUM_NODES)
+    inter = np.nonzero(part.node_of[meas.i] != part.node_of[meas.j])[0]
+    good = np.setdiff1d(inter, bad)
+    t0 = time.perf_counter()
+    R0 = chordal_initialization(meas)
+    t_0 = recover_translations_global(meas, R0)
+    chordal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(native.native_available(), "pcm_rim: the native library did not "
+          f"build: {native._Loaded.failed}")
+    print(f"pcm_rim: native library {native.LIB_PATH} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s; chordal start of the corrupted "
+          f"graph {chordal_s:.2f} s (host)")
+
+    def run(fn, tol, where, **kw):
+        CliqueRoutes.reset()
+        syncs = HostSyncs()
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, keep = fn(meas, NUM_NODES, t_0, R0, PCMOptions(tolerance=tol),
+                     device=where, dtype=torch.float64, syncs=syncs, **kw)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        routes = dict(CliqueRoutes.counts)
+        check(routes["native"] > 0 and routes["python"] == 0
+              and routes["heuristic"] == 0,
+              f"pcm_rim: the cliques did not run natively: {routes}")
+        return keep, secs, syncs.count, routes
+
+    cpu = torch.device("cpu")
+    out = {}
+    for tol in (PCM_TOL, 0.2):
+        for name, fn, kw in (("batch", pcm_filter, {}),
+                             ("incremental", pcm_filter_incremental,
+                              dict(batch=PCM_BATCH))):
+            keep, secs, reads, routes = run(fn, tol, dev, **kw)
+            keep_cpu, secs_cpu, _, _ = run(fn, tol, cpu, **kw)
+            check(bool((keep == keep_cpu).all()), f"pcm_rim: {name} keep "
+                  f"mask at {tol} on the card differs from the CPU's in "
+                  f"{int((keep != keep_cpu).sum())} edges")
+            out[(tol, name)] = dict(
+                seconds=secs, cpu_seconds=secs_cpu, mask_reads=reads,
+                clique_routes=routes, kept=int(keep.sum()),
+                outliers_kept=int(keep[bad].sum()),
+                inliers_dropped=int((~keep[good]).sum()), keep=keep)
+            print(f"pcm_rim {name} at tolerance {tol} [{card}]: {secs:.3f} s "
+                  f"on the card ({reads} mask reads, cliques {routes}), "
+                  f"{secs_cpu:.3f} s on the CPU, keep masks equal; "
+                  f"outliers kept {out[(tol, name)]['outliers_kept']}/"
+                  f"{len(bad)}, inlier inter-node edges dropped "
+                  f"{out[(tol, name)]['inliers_dropped']}/{len(good)}")
+    b3 = out[(PCM_TOL, "batch")]
+    print(f"pcm_rim: batch filter at {PCM_TOL}: outliers kept "
+          f"{b3['outliers_kept']}/{len(bad)} (JAX package on a CPU: 0/53), "
+          f"inliers dropped {b3['inliers_dropped']}/{len(good)} (JAX: "
+          "143/474)")
+    check(b3["outliers_kept"] == 0, "pcm_rim: an outlier survived the batch "
+          "filter at tolerance 3.0")
+    disagree = {}
+    for tol in (PCM_TOL, 0.2):
+        diff = out[(tol, "batch")]["keep"] != out[(tol, "incremental")][
+            "keep"]
+        disagree[tol] = int(diff.sum())
+        print(f"pcm_rim: batch vs incremental (batch {PCM_BATCH}) at "
+              f"{tol}: {disagree[tol]} edges kept by one and not the other "
+              "(the loop error is not symmetric; ROADMAP Queue 3)")
+    filtered = meas.select(b3["keep"])
+
+    # The filtered graph through AMM-PGO#, refined preset, trivial loss.
+    solver, init = make_solver(filtered, f"pcm_rim: {DATASET} with "
+                               f"{len(bad)} outliers, after PCM at "
+                               f"{PCM_TOL}", opts=MMOptions(accelerated=True))
+    paths["pcm_rim"], launches["pcm_rim"], st = run_path(
+        "pcm_rim", solver, init, ("polar_so3", "stpcg"), card)
+    def f2(graph, t, R):
+        edges = EdgeData.from_measurements(graph, dtype=torch.float64,
+                                           device=dev)
+        t, R = (torch.as_tensor(x, dtype=torch.float64, device=dev)
+                for x in (t, R))
+        return 2.0 * float(evaluate_f(edges, t, R))
+
+    t, R = (x.double() for x in solver.gather_global(st))
+    f_clean = f2(rim, t, R)
+    # Whether the filtered solve is short of its optimum, or the filtered
+    # graph's optimum lies elsewhere: the rim path's estimate (near the
+    # clean optimum) scored on the filtered graph.
+    f_filtered_at_rim = f2(filtered, *rim_est)
+    print(f"pcm_rim: estimate after {ITERS} steps on the clean rim graph "
+          f"2f {f_clean:.6f}, beside the clean rim path's 2f at {ITERS} "
+          f"{paths['rim']['f2_final']:.6f} and 2f* {RIM_CERTIFIED_2F}; the "
+          f"rim path's estimate on the filtered graph 2f "
+          f"{f_filtered_at_rim:.6f} (the filtered solve's "
+          f"{paths['pcm_rim']['f2_final']:.6f})")
+    check(np.isfinite(f_clean), "pcm_rim: non-finite clean 2f")
+    paths["pcm_rim"].update(
+        chordal_s=chordal_s, clean_f2=f_clean,
+        filtered_f2_at_rim_estimate=f_filtered_at_rim, outliers=len(bad),
+        inlier_inter_edges=len(good), batch_incremental_disagree=disagree,
+        pcm={f"{name}@{tol}": {k: v for k, v in o.items() if k != "keep"}
+             for (tol, name), o in out.items()})
+    to_profile.append(("pcm_rim", solver, init))
+    del st
+
+    # aa_rim: Anderson-accelerated MM on the clean rim graph (K2 only).
+    solver, init = make_solver(rim, f"aa_rim: {DATASET}, "
+                               "MMOptions(scheme='aa')",
+                               opts=MMOptions(scheme="aa"))
+    paths["aa_rim"], launches["aa_rim"], _ = run_path(
+        "aa_rim", solver, init, ("polar_so3",), card, monotone=True,
+        fused=False)
+    print(f"aa_rim: 2f at {ITERS} {paths['aa_rim']['f2_final']:.6f} beside "
+          f"the AMM-PGO# rim path's {paths['rim']['f2_final']:.6f} "
+          f"(2f* {RIM_CERTIFIED_2F})")
+    to_profile.append(("aa_rim", solver, init))
+
+    # cli_pcm: the CLI on the corrupted graph's .g2o, streamed PCM.
+    work = tempfile.TemporaryDirectory()
+    g2o = os.path.join(work.name, "rim_outliers.g2o")
+    t_true = recover_translations_global(meas, R0)
+    write_g2o_file(g2o, t_true, R0, meas)
+    back = read_g2o_file(g2o)
+    R1 = chordal_initialization(back)
+    _, keep_want = pcm_filter_incremental(
+        back, NUM_NODES, recover_translations_global(back, R1), R1,
+        PCMOptions(tolerance=PCM_TOL), batch=PCM_BATCH, device=dev,
+        dtype=torch.float32)
+    want = f"PCM kept {keep_want.sum()}/{len(keep_want)} edges"
+    argv = ["--dataset", g2o, "--num_nodes", str(NUM_NODES), "--pcm",
+            "--pcm_tolerance", str(PCM_TOL), "--pcm_stream", str(PCM_BATCH),
+            "--f32", "--iters", "30"]
+    here = os.getcwd()
+    buf = io.StringIO()
+    reset_counts()
+    try:
+        os.chdir(work.name)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        secs = time.perf_counter() - t0
+        rows = np.loadtxt(f"results_chordal_{NUM_NODES}_amm.txt", ndmin=2)
+        est = np.loadtxt("estimates_trivial.txt", ndmin=2)
+    finally:
+        os.chdir(here)
+        work.cleanup()
+    launches["cli_pcm"] = kernel_counts()
+    lines = buf.getvalue().splitlines()
+    kept = [ln for ln in lines if ln.startswith("PCM kept")]
+    print(f"cli_pcm [{card}]: {secs:.2f} s; {kept}; {rows.shape[0]} result "
+          f"rows, 2f {rows[0, 2]:.6f} -> {rows[-1, 2]:.6f}, launches "
+          f"{launches['cli_pcm']}")
+    check(kept == [want], f"cli_pcm: {kept} != [{want!r}]")
+    check(rows.shape == (31, 4) and np.isfinite(rows).all(),
+          f"cli_pcm: result rows {rows.shape}")
+    check(est.shape == (back.num_poses * 4, 3) and np.isfinite(est).all(),
+          f"cli_pcm: estimates shape {est.shape}")
+    check(rows[-1, 2] < rows[0, 2], "cli_pcm: 2f did not decrease")
+    for kern in ("polar_so3", "stpcg"):
+        check(launches["cli_pcm"][kern] > 0, f"cli_pcm: kernel {kern} was "
+              f"not launched: {launches['cli_pcm']}")
+    paths["cli_pcm"] = {"seconds": secs, "pcm_line": kept[0],
+                        "rows": rows.tolist(),
+                        "launches": launches["cli_pcm"], "card": card}
+
+
 def ensure_rim100k(root: str) -> str:
     """The path of rim_synth_100k.g2o, made with tools/make_rim.py (numpy
     only) in a subprocess when the file is absent."""
@@ -1541,6 +1760,10 @@ def main() -> int:
         os.chdir(here)
     work.cleanup()
 
+    # Path 9: PCM, Anderson acceleration and the CLI's --pcm.
+    pcm_aa_paths(root, dev, card, make_solver, rim, rim_est, paths,
+                 launches, to_profile)
+
     # Path 8: the global polish and the certificate.
     del solver
     polish_certify_paths(root, dev, card, rim, rim_est, paths, launches)
@@ -1595,8 +1818,9 @@ def main() -> int:
         entry("stpcg_d2", "dpgo_tpu_torch/csrc/stpcg.cu",
               "dpgo_tpu/ops/pallas_stpcg.py:140", k1_d2),
     ]
-    print(json.dumps({"paths": paths, "k1_phases": k1,
-                      "seconds": time.perf_counter() - t_start}))
+    secs = time.perf_counter() - t_start
+    print(f"chip_smoke: whole run {secs:.1f} s [{card}]")
+    print(json.dumps({"paths": paths, "k1_phases": k1, "seconds": secs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

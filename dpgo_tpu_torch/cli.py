@@ -8,16 +8,19 @@ Usage:
         [--checkpoint path.npz] [--checkpoint_every 100] [--device cuda]
         [--polish OUTER] [--polish_tcg 500] [--polish_coarse true]
         [--polish_levels 64,256] [--lm_polish] [--certify]
+        [--pcm] [--pcm_tolerance 0.2] [--pcm_stream BATCH]
 
 Writes results_chordal_<N>_<amm|mm>.txt with rows `iter time fobj grad`
 (2x-scaled objective/gradient as in the reference) and gauge-normalized
 estimates_<loss>.txt (first pose at origin/identity) into the working
 directory. Runs on the CUDA card unless `--device` names another
-(`--device cpu`). After the MM iterations, `--polish`, `--lm_polish` and
+(`--device cpu`). `--pcm` rejects inconsistent inter-node loop closures
+before the solve: PCM on the centralized chordal estimate, its loop errors
+on the card in the solver's type, one-shot or streamed in batches
+(`--pcm_stream`). After the MM iterations, `--polish`, `--lm_polish` and
 `--certify` run in that order: the global Riemannian TNT polish on the card,
 the host sparse LM polish, and the SE-Sync certificate of the final
-rotations. The PCM flags (not ported yet) are parsed and refused before the
-solve.
+rotations.
 """
 
 from __future__ import annotations
@@ -27,9 +30,6 @@ import os
 import time
 
 import numpy as np
-
-# Flags of modules not ported yet: refused (not ignored) when set.
-_NOT_PORTED = ("pcm", "pcm_tolerance", "pcm_stream")
 
 
 def _bool(v: str) -> bool:
@@ -57,6 +57,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--accepted_delta", type=float, default=5e-4,
                     help="TNT refinement gate")
     ap.add_argument("--solver", default="hash", choices=["hash", "star"])
+    ap.add_argument("--pcm", action="store_true",
+                    help="PCM outlier rejection on inter edges before solving")
+    ap.add_argument("--pcm_tolerance", type=float, default=0.2)
+    ap.add_argument("--pcm_stream", type=int, default=0, metavar="BATCH",
+                    help="feed inter edges through the incremental "
+                         "PCMSolver pipeline in batches of BATCH; 0 = "
+                         "one-shot")
     ap.add_argument("--save", type=_bool, default=True)
     ap.add_argument("--f32", action="store_true")
     ap.add_argument("--checkpoint", default=None)
@@ -86,22 +93,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lm_polish", action="store_true",
                     help="(trivial loss) finish with the host-side exact "
                          "sparse Newton polish (solvers/host_lm.py)")
-    # Not ported yet: parsed so that setting one is refused, not ignored.
-    ap.add_argument("--pcm", action="store_true")
-    ap.add_argument("--pcm_tolerance", type=float, default=0.2)
-    ap.add_argument("--pcm_stream", type=int, default=0)
     return ap
 
 
 def main(argv=None):
-    ap = _parser()
-    args = ap.parse_args(argv)
-    unported = [name for name in _NOT_PORTED
-                if getattr(args, name) != ap.get_default(name)]
-    if unported:
-        raise SystemExit("dpgo_tpu_torch.cli: "
-                         + ", ".join("--" + n for n in unported)
-                         + " not ported yet")
+    args = _parser().parse_args(argv)
 
     import torch
 
@@ -120,6 +116,23 @@ def main(argv=None):
         raise SystemExit("--lm_polish requires trivial loss")
     print(f"dataset: {args.dataset}  poses={meas.num_poses}  "
           f"edges={len(meas)}  d={meas.d}")
+
+    if args.pcm:
+        from dpgo_tpu_torch.pcm import (PCMOptions, pcm_filter,
+                                        pcm_filter_incremental)
+        from dpgo_tpu_torch.sesync import (chordal_initialization,
+                                           recover_translations_global)
+        R0 = chordal_initialization(meas)
+        t0 = recover_translations_global(meas, R0)
+        popts = PCMOptions(tolerance=args.pcm_tolerance)
+        if args.pcm_stream > 0:
+            meas, keep = pcm_filter_incremental(
+                meas, args.num_nodes, t0, R0, popts, batch=args.pcm_stream,
+                device=device, dtype=dtype)
+        else:
+            meas, keep = pcm_filter(meas, args.num_nodes, t0, R0, popts,
+                                    device=device, dtype=dtype)
+        print(f"PCM kept {keep.sum()}/{len(keep)} edges")
 
     opts = MMOptions(accelerated=args.accelerated, rescale=args.rescale,
                      preconditioner=args.preconditioner,

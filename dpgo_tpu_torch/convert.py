@@ -8,8 +8,8 @@ caller: the tests carry the JAX package's state to the CPU), so both
 packages can start from one state. Dense, edge-wise and segment problems at
 d = 2 and 3 are taken, reweighted (dynamic) ones included; a field a regime
 does not build is the JAX package's [N, 1, 1] placeholder in both. Fields
-the port does not carry (fused-kernel panels, the one-hot scatter, Anderson
-history) are ignored.
+the port does not carry (fused-kernel panels, the one-hot scatter) are
+ignored.
 """
 
 from __future__ import annotations
@@ -25,9 +25,10 @@ from dpgo_tpu_torch.solvers.star import StarState
 _STATE_FIELDS = ("g_t", "g_R", "f", "fobj", "Df_t", "Df_R", "g_t_prev",
                  "g_R_prev", "Df_t_prev", "Df_R_prev", "fobj_prev",
                  "gradFnorm", "Gk", "Fk0", "Fk1", "s", "s_next", "gamma",
-                 "z_rt", "z_rR", "z_us", "z_Es", "scale_w")
+                 "z_rt", "z_rR", "z_us", "z_Es", "scale_w", "aa_dX", "aa_dR",
+                 "aa_x_prev", "aa_r_prev")
 _STATE_INT_FIELDS = ("hits0", "hits1", "osc_buf", "num_osc",
-                     "rescale_count")
+                     "rescale_count", "aa_count")
 _STAR_FIELDS = ("g_t", "g_R", "f", "fobj", "Df_t", "Df_R", "g_t_prev",
                 "g_R_prev", "Df_t_prev", "Df_R_prev", "gradFnorm", "s",
                 "s_next", "gamma", "F", "z_rt", "z_rR", "z_us", "z_Es")

@@ -1,6 +1,6 @@
 """End-to-end distributed PGO driver on one device (torch port of
-dpgo_tpu/driver.py): DPGOSolver runs MM-PGO and AMM-PGO#, DPGOStarSolver
-AMM-PGO*.
+dpgo_tpu/driver.py): DPGOSolver runs MM-PGO, AMM-PGO# and Anderson-
+accelerated MM (`MMOptions(scheme="aa")`), DPGOStarSolver AMM-PGO*.
 
 Single-process simulation: the node axis is a batch dimension;
 communication is a gather on the stacked node states. One solver iteration
@@ -41,13 +41,14 @@ def communicate(st: MMState, halo_owner, halo_lpose, halo_dc=None) -> MMState:
 class DPGOSolver:
     """Distributed PGO on one device: batched node axis, eager step.
 
-    Ported scope: MM-PGO and AMM-PGO#, node blocks of any size (n0 d up to
-    `dense_limit` on the dense operator path, up to `segment_limit` poses
-    edge-wise, above that the segment path with segments of `seg_size`
-    poses; see problem.py), d = 2 and 3, every loss kernel with static or
-    dynamic rescale, the three STPCG preconditioners, centralized chordal
-    or distributed (DChordal) initialization. Runs on the CUDA card unless
-    `device` names another (`device="cpu"`). A problem copy with
+    Ported scope: MM-PGO, AMM-PGO# and Anderson-accelerated MM, node
+    blocks of any size (n0 d up to `dense_limit` on the dense operator
+    path, up to `segment_limit` poses edge-wise, above that the segment
+    path with segments of `seg_size` poses; see problem.py), d = 2 and 3,
+    every loss kernel with static or dynamic rescale, the three STPCG
+    preconditioners, centralized chordal or distributed (DChordal)
+    initialization. Runs on the CUDA card unless `device` names another
+    (`device="cpu"`). A problem copy with
     `dataclasses.replace(solver.probs, kernels=False)` runs the plain torch
     versions of the two CUDA kernels on any device."""
 
@@ -205,9 +206,8 @@ class DPGOSolver:
         return mm_mod.reweighted_problems(self.probs, st, self.opts)
 
     def _step(self, st: MMState, k: int) -> MMState:
-        iterate = (mm_mod.iterate_amm
-                   if mm_mod.resolve_scheme(self.opts) == "amm"
-                   else mm_mod.iterate_mm)
+        iterate = {"amm": mm_mod.iterate_amm, "aa": mm_mod.iterate_aa}.get(
+            mm_mod.resolve_scheme(self.opts), mm_mod.iterate_mm)
         st = iterate(self.problems(st), st, self.opts, k, self.syncs)
         st = communicate(st, self.halo_owner, self.halo_lpose, self.halo_dc)
         # Z_prev (stamped inside iterate) is the previous anchor including
@@ -248,9 +248,11 @@ class DPGOSolver:
         """True iff the TNT refinement's trust-region subproblem runs in the
         fused single-launch STPCG (kernel K1): the Hopper gate (dense path,
         d = 2 or 3, float32, CUDA device), the dense preconditioner and
-        refinement enabled. Mirrors mm._make_tnt_model_dense."""
+        refinement enabled (Anderson acceleration runs no refinement).
+        Mirrors mm._make_tnt_model_dense."""
         tnt = self.opts.tnt
-        return (self.probs.fused_stpcg_supported()
+        return (mm_mod.resolve_scheme(self.opts) != "aa"
+                and self.probs.fused_stpcg_supported()
                 and mm_mod.resolve_preconditioner(self.probs,
                                                   self.opts) == "dense"
                 and tnt.max_iterations > 0

@@ -21,10 +21,12 @@ block-Jacobi preconditioner (also DChordal's stage 0); on the segment path
 `_make_tnt_model_coupled`, the coupled (t, R) model with the segment
 preconditioners.
 
+- `iterate_aa`   = safeguarded Anderson acceleration of the MM fixed point
+  (`scheme="aa"`; no reference analog).
+
 Control flow: where the JAX package branches on the device (`lax.cond` on
 `jnp.any(mask)`), this port reads the flag on the host through a
-`HostSyncs` counter and skips the branch in Python. Anderson acceleration
-(`scheme="aa"`) is not ported.
+`HostSyncs` counter and skips the branch in Python.
 """
 
 from __future__ import annotations
@@ -78,8 +80,20 @@ class MMOptions:
     oscillation_cnt_period: int = 15
     max_oscillations: int = 12
     tnt: TNTParams = TNTParams()
-    # Iteration scheme: None = "amm" when accelerated else "mm".
+    # Iteration scheme: None = "amm" when accelerated else "mm" (the two
+    # reference schemes); "aa" = safeguarded Anderson acceleration of the MM
+    # fixed point (iterate_aa).
     scheme: str | None = None
+    aa_window: int = 8        # Anderson history depth m
+    aa_reg: float = 1e-8      # Tikhonov regularization of the normalized Gram
+    # Safeguard: "monotone" accepts the Anderson candidate only when its
+    # surrogate value does not exceed the anchor objective (keeps the global
+    # objective monotone, since sum_a G_a(X_a|Z) >= f(X)); "none" always
+    # accepts (diverges on hard graphs; for studies only).
+    aa_safeguard: str = "monotone"
+    # Re-solve translations exactly (min_t G given the Anderson rotations)
+    # instead of keeping the extrapolated translations.
+    aa_resolve_t: bool = False
 
 
 def resolve_scheme(opts: MMOptions) -> str:
@@ -128,9 +142,26 @@ class MMState:
     # updates since each node's last rescale.
     scale_w: torch.Tensor    # [N, m1]
     rescale_count: torch.Tensor  # [N] int32
+    # Anderson acceleration history (scheme="aa"; zero-sized otherwise).
+    aa_dX: torch.Tensor      # [N, m, D] iterate diffs, newest last
+    aa_dR: torch.Tensor      # [N, m, D] residual diffs, newest last
+    aa_x_prev: torch.Tensor  # [N, D] previous anchor (flattened own block)
+    aa_r_prev: torch.Tensor  # [N, D] previous residual
+    aa_count: torch.Tensor   # [N] int32 valid history length
 
     def replace(self, **kw) -> "MMState":
         return dataclasses.replace(self, **kw)
+
+
+def _flat_own(t: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """Flatten per-node own blocks (t [N,n,d], R [N,n,d,d]) to [N, D]."""
+    N = t.shape[0]
+    return torch.cat([t.reshape(N, -1), R.reshape(N, -1)], dim=-1)
+
+
+def _unflat_own(x: torch.Tensor, t_like: torch.Tensor, R_like: torch.Tensor):
+    nt = t_like[0].numel()
+    return (x[:, :nt].reshape(t_like.shape), x[:, nt:].reshape(R_like.shape))
 
 
 def init_state(probs: NodeProblem, Z: NodeState, opts: MMOptions) -> MMState:
@@ -141,6 +172,8 @@ def init_state(probs: NodeProblem, Z: NodeState, opts: MMOptions) -> MMState:
     izeros = torch.zeros(N, dtype=torch.int32, device=dev)
     period = opts.oscillation_cnt_period
     m0, m1 = probs.a_i.shape[1], probs.e_self.shape[1]
+    m = opts.aa_window if resolve_scheme(opts) == "aa" else 0
+    D = Z.t[0].numel() + Z.R[0].numel() if m else 0
     z = torch.zeros_like
     return MMState(
         Z=Z, Z_prev=Z,
@@ -161,6 +194,11 @@ def init_state(probs: NodeProblem, Z: NodeState, opts: MMOptions) -> MMState:
         z_Es=torch.zeros((N, m1, d, d), dtype=dt, device=dev),
         scale_w=torch.ones_like(probs.scale_w),
         rescale_count=izeros,
+        aa_dX=torch.zeros((N, m, D), dtype=dt, device=dev),
+        aa_dR=torch.zeros((N, m, D), dtype=dt, device=dev),
+        aa_x_prev=torch.zeros((N, D), dtype=dt, device=dev),
+        aa_r_prev=torch.zeros((N, D), dtype=dt, device=dev),
+        aa_count=izeros,
     )
 
 
@@ -168,11 +206,10 @@ def _check_supported(probs: NodeProblem, opts: MMOptions):
     if opts.rescale not in ("static", "dynamic"):
         raise ValueError(f"unknown rescale {opts.rescale!r}")
     scheme = resolve_scheme(opts)
-    if scheme == "aa":
-        raise NotImplementedError("scheme 'aa' (Anderson acceleration) is "
-                                  "not ported")
-    if scheme not in ("amm", "mm"):
+    if scheme not in ("amm", "mm", "aa"):
         raise ValueError(f"unknown scheme {scheme!r}")
+    if scheme == "aa" and opts.aa_safeguard not in ("monotone", "none"):
+        raise ValueError(f"unknown aa_safeguard {opts.aa_safeguard!r}")
 
 
 def _dynamic(probs: NodeProblem, opts: MMOptions) -> bool:
@@ -739,3 +776,77 @@ def iterate_mm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
 
     Z_new = NodeState(t=Xak_t, R=Xak_R, th=st.Z.th, Rh=st.Z.Rh)
     return st.replace(Z=Z_new, Z_prev=st.Z, Gk=Gk)
+
+
+def iterate_aa(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
+               syncs: HostSyncs | None = None) -> MMState:
+    """One safeguarded Anderson-accelerated MM iteration for all nodes.
+
+    The MM loop is the fixed-point iteration X <- T(X), T = per-node
+    closed-form surrogate minimization + halo exchange. Anderson
+    acceleration (type II) keeps the last `aa_window` steps: with residuals
+    r_j = T(X_j) - X_j it solves theta = argmin |r_k - dRhist theta| per
+    node and extrapolates X+ = T(X_k) - (dXhist + dRhist) theta. No
+    reference analog (the reference's only extrapolation is Nesterov,
+    DPGOHash.cpp:258-266). The history is a fixed [m, D] ring buffer per
+    node and the solve one m x m SPD system per node, factored with
+    `cholesky_ex` (no error flag is read back).
+
+    Safeguard ("monotone"): accept the Anderson candidate only where its
+    surrogate value G(X_aa | Z) does not exceed the anchor objective
+    F^a(Z) = G(Z|Z); otherwise keep the plain proximal step. Since
+    sum_a G_a(X_a|Z) >= f(X), the accepted global objective decreases
+    monotonically. The step reads nothing back to the host."""
+    _check_supported(probs, opts)
+    syncs = syncs or HostSyncs()
+    # Plain MM candidate from the anchor: T(X_k) own block (iterate_mm's
+    # proximal path, no TNT).
+    _, th_R = probs.proximal(st.Z, (st.Df_t, st.Df_R))
+    t_c = probs.recover_translations(th_R, st.g_t, st.Z.t, syncs)
+
+    xT = _flat_own(t_c, th_R)
+    x = _flat_own(st.Z.t, st.Z.R)
+    r = xT - x
+
+    # Push (x - x_prev, r - r_prev) into the ring buffers (newest last); the
+    # slot is zero when there is no previous point yet.
+    have = (st.aa_count > 0)[:, None]
+    dx_new = torch.where(have, x - st.aa_x_prev, 0.0)
+    dr_new = torch.where(have, r - st.aa_r_prev, 0.0)
+    dX = torch.cat([st.aa_dX[:, 1:], dx_new[:, None]], dim=1)
+    dR = torch.cat([st.aa_dR[:, 1:], dr_new[:, None]], dim=1)
+
+    # Column-normalized regularized normal equations: empty slots have zero
+    # norm -> unit scale, zero Gram row + lambda I diagonal -> theta_i = 0.
+    nrm = torch.sqrt((dR * dR).sum(-1))                          # [N, m]
+    scale = torch.where(nrm > 0, nrm, 1.0)
+    dRn = dR / scale[..., None]
+    gram = dRn @ dRn.transpose(-1, -2)
+    rhs = (dRn @ r[..., None])                                   # [N, m, 1]
+    m = gram.shape[-1]
+    lam = opts.aa_reg + torch.finfo(gram.dtype).eps
+    gram = gram + lam * torch.eye(m, dtype=gram.dtype, device=gram.device)
+    chol, _ = torch.linalg.cholesky_ex(gram)
+    theta = torch.cholesky_solve(rhs, chol)[..., 0] / scale
+
+    x_aa = xT - (theta[:, None, :] @ (dX + dR))[:, 0]
+    t_aa, R_raw = _unflat_own(x_aa, st.Z.t, st.Z.R)
+    R_aa = project_sod(R_raw, probs.kernels)
+    if opts.aa_resolve_t:
+        t_aa = probs.recover_translations(R_aa, st.g_t, st.Z.t, syncs)
+
+    zres = _anchor_residuals_batch(probs, st)
+    G_aa = _eval_G_batch(probs, st, t_aa, R_aa, zres)
+    if opts.aa_safeguard == "monotone":
+        G_prox = _eval_G_batch(probs, st, t_c, th_R, zres)
+        accept = G_aa <= st.fobj
+    else:
+        G_prox = G_aa
+        accept = torch.ones_like(st.aa_count, dtype=torch.bool)
+
+    Z_new = NodeState(t=sel(accept, t_aa, t_c), R=sel(accept, R_aa, th_R),
+                      th=st.Z.th, Rh=st.Z.Rh)
+    return st.replace(
+        Z=Z_new, Z_prev=st.Z, Gk=torch.where(accept, G_aa, G_prox),
+        aa_dX=dX, aa_dR=dR, aa_x_prev=x, aa_r_prev=r,
+        aa_count=torch.clamp(st.aa_count + 1, max=2 ** 30).to(torch.int32))

@@ -24,6 +24,8 @@ class HostSyncs:
     `lax.cond`, `lax.while_loop`). This port reads those loop and branch
     flags on the host instead (`if syncs.flag(mask.any()):`); each read waits
     for the device. The solver owns one counter and reports syncs per step.
+    PCM reads one consistency mask per node pair through `read`, which
+    counts the same way.
 
     `loops` holds, per host-driven loop that reports to it by name
     ("seg_cg": the segment path's translation CG, "stpcg": the torch STPCG,
@@ -41,6 +43,11 @@ class HostSyncs:
     def flag(self, x: torch.Tensor) -> bool:
         self.count += 1
         return bool(x)
+
+    def read(self, x: torch.Tensor):
+        """One read of a whole tensor (a mask) to the host, as numpy."""
+        self.count += 1
+        return x.cpu().numpy()
 
     def note(self, loop: str, trips: int) -> None:
         entry = self.loops.setdefault(loop, [0, 0])

@@ -71,19 +71,59 @@ def test_cli_matches_jax_cli(g2o, tmp_path, monkeypatch, solver,
     np.testing.assert_allclose(te, je, atol=1e-8)
 
 
-@pytest.mark.parametrize("flag", [["--pcm"], ["--pcm_stream", "4"]])
-def test_cli_refuses_flags_not_ported(tmp_path, monkeypatch, flag):
-    """A flag of a later slice exits non-zero with "not ported yet" before
-    the dataset is even read, and writes nothing."""
+@pytest.fixture(scope="module")
+def g2o_outliers(tmp_path_factory):
+    """A 40-pose SE(3) graph with three of its inter-node edges (2 nodes)
+    moved by 10 m, written as g2o text."""
+    from dpgo_tpu_torch.graph import make_partition
+    from dpgo_tpu_torch.io.g2o import write_g2o_file
+
+    meas, t, R = random_pose_graph(np.random.default_rng(3), num_poses=40,
+                                   d=3, loop_closures=30, noise=0.02)
+    part = make_partition(meas.num_poses, 2)
+    inter = np.nonzero(part.node_of[meas.i] != part.node_of[meas.j])[0]
+    meas.t[inter[::4][:3]] += 10.0
+    path = str(tmp_path_factory.mktemp("outliers") / "outliers.g2o")
+    write_g2o_file(path, t, R, _torch_meas(meas))
+    return path
+
+
+@pytest.mark.parametrize("flag", [["--pcm"], ["--pcm", "--pcm_stream", "4"]])
+def test_cli_refuses_flags_not_ported(g2o_outliers, tmp_path, monkeypatch,
+                                      capsys, flag):
+    """The PCM flags, refused before they were ported, now run as in the
+    JAX package's CLI: on a graph with three corrupted inter-node edges,
+    one-shot PCM (--pcm) and the incremental pipeline in batches of 4
+    (--pcm_stream 4) at tolerance 1.0 on the chordal start print the same
+    "PCM kept X/Y edges" line (some edges dropped), and the solve of the
+    filtered graph (f64, 10 iterations recorded every 5) gives the same
+    result rows (2f and 2|grad| within rtol 1e-9) and estimates (atol
+    1e-9)."""
+    from dpgo_tpu.cli import main as jax_main
+
     from dpgo_tpu_torch.cli import main
 
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit) as exc:
-        main(["--dataset", str(tmp_path / "absent.g2o"), "--num_nodes", "2",
-              "--device", "cpu"] + flag)
-    assert exc.value.code not in (0, None)
-    assert "not ported yet" in str(exc.value.code)
-    assert os.listdir(tmp_path) == []
+    args = ["--dataset", g2o_outliers, "--num_nodes", "2", "--iters", "10",
+            "--record_every", "5", "--dist_init", "false",
+            "--pcm_tolerance", "1.0"] + flag
+    out = {}
+    for pkg, fn in (("jax", jax_main), ("torch", main)):
+        wd = tmp_path / pkg
+        wd.mkdir()
+        monkeypatch.chdir(wd)
+        fn(args + (["--device", "cpu"] if pkg == "torch" else []))
+        kept = [ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("PCM kept")]
+        out[pkg] = (kept, _rows(wd / "results_chordal_2_amm.txt"),
+                    _rows(wd / "estimates_trivial.txt"))
+    (jk, jr, je), (tk, tr, te) = out["jax"], out["torch"]
+    assert len(tk) == 1 and tk == jk
+    kept, total = map(int, tk[0].split()[2].split("/"))
+    assert kept < total
+    assert tr.shape == jr.shape == (3, 4)
+    np.testing.assert_allclose(tr[:, 2:], jr[:, 2:], rtol=1e-9)
+    assert te.shape == je.shape == (40 * 4, 3)
+    np.testing.assert_allclose(te, je, atol=1e-9)
 
 
 def _certification(out):

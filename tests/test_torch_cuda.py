@@ -577,3 +577,138 @@ def test_round_solution_launches_k2_f64(dev):
     assert Launches.by_dtype[torch.float64] == before + 1
     Rp = dataclasses.replace(p, kernels=False).round_solution(Y)
     np.testing.assert_allclose(R.cpu().numpy(), Rp.cpu().numpy(), atol=1e-12)
+
+
+def _outlier_grid3d():
+    from dpgo_tpu_torch.synthetic import with_outliers
+    return with_outliers(_grid3d(), np.random.default_rng(3), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pcm_loop_errors_on_the_card_match_cpu(dev, dtype):
+    """loop_errors on the card against the CPU in the same type, on the
+    oriented inter-node edges of grid3D_synth with outliers (4 nodes,
+    chordal estimate) for every node pair: within eps (1e-5 in float32,
+    1e-12 in float64) times 1 + max |t|, the scale of the translations whose
+    differences the loop error sums. pcm_filter on the card reads one mask
+    per pair, runs the native cliques, and in float64 keeps the CPU's edges
+    (in float32 an error within rounding of the tolerance may flip)."""
+    from dpgo_tpu_torch import pcm
+    from dpgo_tpu_torch.sesync import (chordal_initialization,
+                                       recover_translations_global)
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    meas, _ = _outlier_grid3d()
+    R = chordal_initialization(meas)
+    t = recover_translations_global(meas, R)
+    eps = (1e-5 if dtype == torch.float32 else 1e-12) * (
+        1.0 + np.abs(t).max())
+    pairs = 0
+    for es, Rm, tm, gi, gj in pcm._oriented_pairs(meas, 4):
+        ones = np.ones(len(es))
+        A = (Rm, tm, ones, ones, t[gi], R[gi], t[gj], R[gj])
+        on_card = pcm.loop_errors(pcm._on(A, dev, dtype), pcm._on(A, dev,
+                                                                 dtype))
+        on_cpu = pcm.loop_errors(pcm._on(A, "cpu", dtype),
+                                 pcm._on(A, "cpu", dtype))
+        assert on_card.is_cuda and on_card.dtype == dtype
+        np.testing.assert_allclose(on_card.cpu().numpy(), on_cpu.numpy(),
+                                   rtol=0, atol=eps)
+        pairs += 1
+    opts = pcm.PCMOptions(tolerance=3.0)
+    syncs = HostSyncs()
+    pcm.CliqueRoutes.reset()
+    _, keep = pcm.pcm_filter(meas, 4, t, R, opts, device=dev, dtype=dtype,
+                             syncs=syncs)
+    assert syncs.count == pairs > 0
+    assert pcm.CliqueRoutes.counts["native"] == pairs
+    if dtype == torch.float64:
+        _, keep_cpu = pcm.pcm_filter(meas, 4, t, R, opts, device="cpu",
+                                     dtype=dtype)
+        np.testing.assert_array_equal(keep, keep_cpu)
+
+
+@pytest.mark.cuda
+def test_aa_with_k2_matches_plain(dev):
+    """MMOptions(scheme="aa") in float32 on grid3D_synth with 4 nodes: 20
+    steps through K2 (every Anderson candidate is projected by it) agree
+    with the run through the plain versions (per-step 2f within rtol
+    1e-4), no host read in the step, 2f never rises by more than 1e-5 of
+    itself (the monotone safeguard)."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    s = DPGOSolver(_grid3d(), num_nodes=4, opts=MMOptions(scheme="aa"),
+                   dtype=torch.float32, device=dev)
+    k1, k2 = stpcg_cuda.Launches.count, polar_so3_cuda.Launches.count
+    _, _, (f, _) = s.run_steps_history(s.initialize(), 0, 20)
+    assert polar_so3_cuda.Launches.count >= k2 + 40
+    assert stpcg_cuda.Launches.count == k1
+    assert s.syncs.count == 0
+    s.probs = dataclasses.replace(s.probs, kernels=False)
+    s.syncs = HostSyncs()
+    k2 = polar_so3_cuda.Launches.count
+    _, _, (fp, _) = s.run_steps_history(s.initialize(), 0, 20)
+    assert polar_so3_cuda.Launches.count == k2
+    f = f.cpu().numpy()
+    assert np.isfinite(f).all()
+    assert np.all(np.diff(f) <= 1e-5 * np.abs(f[1:]))
+    np.testing.assert_allclose(f, fp.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lsqr_and_tnls_on_the_card_match_cpu(dev, rng):
+    """lsqr (a 30 x 10 least-squares problem with a trust radius) and tnls
+    (the sphere problem min |x - p| on S^2) on the card in float64 against
+    the CPU: same iterations, results within 1e-12."""
+    from dpgo_tpu_torch.solvers.optimization import TNLSParams, lsqr, tnls
+
+    A = torch.as_tensor(rng.normal(size=(30, 10)))
+    b = torch.as_tensor(rng.normal(size=(30,)))
+    out = {}
+    for where in ("cpu", dev):
+        Ad, bd = A.to(where), b.to(where)
+        x, xn, k = lsqr(lambda v: Ad @ v, lambda u: Ad.T @ u, bd,
+                        torch.zeros(10, dtype=torch.float64, device=where),
+                        max_iters=200, atol=1e-12, Delta=0.3,
+                        return_info=True)
+        p = torch.tensor([1.0, 2.0, 2.0], dtype=torch.float64, device=where)
+        y, Fn, gn, kt = tnls(
+            lambda x: x - p, lambda x, v: v,
+            lambda x, w: w - x * (x * w).sum(),
+            lambda x, h: (x + h) / torch.linalg.norm(x + h),
+            torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64,
+                         device=where), TNLSParams(max_iterations=60))
+        assert x.device.type == torch.device(where).type
+        out[str(where)] = (x.cpu(), float(xn), k, y.cpu(), float(Fn), kt)
+    (x0, n0, k0, y0, F0, kt0), (x1, n1, k1, y1, F1, kt1) = out.values()
+    assert (k0, kt0) == (k1, kt1)
+    np.testing.assert_allclose(x1.numpy(), x0.numpy(), atol=1e-12)
+    np.testing.assert_allclose(y1.numpy(), y0.numpy(), atol=1e-12)
+    np.testing.assert_allclose([n1, F1], [n0, F0], rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_native_library_built_by_the_port(dev):
+    """The port's loader builds libdpgo_native.so in its own build directory
+    from native/*.cpp (never running make in native/): the clique solver
+    and the g2o reader load from it and agree with the Python versions."""
+    from dpgo_tpu_torch.io import native
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+    from dpgo_tpu_torch.ops._build import BUILD_DIR
+    from dpgo_tpu_torch.pcm import max_clique_exact
+
+    assert native.native_available(), native._Loaded.failed
+    assert os.path.dirname(native.LIB_PATH) == BUILD_DIR
+    assert os.path.exists(native.LIB_PATH + ".sha256")
+    adj = np.random.default_rng(1).random((30, 30)) < 0.5
+    adj = adj | adj.T
+    np.fill_diagonal(adj, False)
+    assert native.max_clique_native(adj).sum() == max_clique_exact(adj).sum()
+    path = os.path.join(REPO, "artifacts", "grid3D_synth.g2o")
+    got, want = native.read_g2o_file_native(path), read_g2o_file(path)
+    np.testing.assert_array_equal(got.i, want.i)
+    np.testing.assert_allclose(got.R, want.R, rtol=1e-12, atol=1e-12)

@@ -212,14 +212,15 @@ def test_amm_preconditioners_match_jax_f64(kind):
 
 
 def test_schemes_and_preconditioners_reject_unknowns():
-    """scheme="aa" (Anderson acceleration) raises NotImplementedError at the
-    first update; an unknown preconditioner raises ValueError."""
+    """An unknown scheme raises ValueError at the first update (scheme="aa"
+    runs, tests/test_torch_aa.py); an unknown preconditioner raises
+    ValueError."""
     from dpgo_tpu_torch.driver import DPGOSolver
     from dpgo_tpu_torch.solvers.mm import MMOptions, resolve_preconditioner
 
     meas = _torch_meas(_graph(2))
-    with pytest.raises(NotImplementedError, match="aa"):
-        DPGOSolver(meas, 2, opts=MMOptions(scheme="aa"),
+    with pytest.raises(ValueError, match="anderson"):
+        DPGOSolver(meas, 2, opts=MMOptions(scheme="anderson"),
                    device="cpu").initialize()
     s = DPGOSolver(meas, 2, device="cpu")
     with pytest.raises(ValueError):
