@@ -98,6 +98,30 @@ TNT preset, 16 nodes, float32, 150 iterations:
      the streamed filter gives on the read-back graph, the result files
      written.
 
+10. the sharded solvers (`dpgo_tpu_torch/parallel/`, run last), each rank
+   a process of its own started by `parallel.launch.spawn` after the
+   kernels are built here, on rim_synth (16 nodes, dense path, refined
+   preset, float32, from rim's chordal start):
+   - nccl1: `ShardedDPGOSolver` over NCCL at world size 1 on cuda:0, halo
+     "boundary", 150 steps;
+   - gloo4: four ranks on cuda:0 over gloo (halos staged through the host):
+     AMM-PGO# with "boundary", 150 steps; 20 steps each of "boundary"
+     twice, "gather" and "ring", once in the default mode and once under
+     torch.use_deterministic_algorithms, where the strategies must part
+     from the first boundary run no more than the second one does;
+     `ShardedDPGOStarSolver`, 50 steps; rim100k_prox's configuration
+     (segment path, 4 x 4 nodes, refinement off), 25 steps;
+   - nccl4: four ranks over NCCL on four cards, only where the machine has
+     them.
+   Every run's 2f history is held to the single-process run's (rim, star,
+   rim100k_prox) within 1e-3 at every step; every rank reports the same
+   history and master fallbacks and launches K2 (and K1 on rim). Each run
+   prints it/s per rank, collectives, bytes and host copies per step per
+   rank, K1 and K2 launches per rank and the backend. The runs of 150, 50
+   and 25 steps are timed as paths 1-5 are, in a second run without
+   history (its host syncs per step printed); nccl1 adds a profile of
+   rim's window (steps 70-90).
+
 Paths 1-5, 7 and pcm_rim / aa_rim are checked against the same path run
 with the kernels' plain versions on the card, and against the exact global
 objective.
@@ -760,6 +784,7 @@ def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
     summary = {"steps": steps, "timed_runs": runs, "it_s": its,
                "plain_it_s": its_p,
                "f2_init": f0, "f2_final": float(fh[-1]),
+               "f2_history": fh,
                "f2_final_plain": float(fhp[-1]), "f2_exact": f_exact,
                "f2_step1_vs_plain_of_decrease": float(dec[0]),
                "host_syncs_per_step": syncs,
@@ -1323,7 +1348,8 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
                       to_profile):
     """The paths above the dense limit (module docstring, 7): the three
     rim100k segment paths with the two measured choices, and rim_edgewise.
-    Fills `paths`, `launches` and `to_profile`."""
+    Fills `paths`, `launches` and `to_profile`; returns rim100k's
+    measurements and start."""
     import numpy as np
     import torch
 
@@ -1343,6 +1369,7 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
     prox = MMOptions(accelerated=True, tnt=TNTParams(max_iterations=0))
     torch.cuda.reset_peak_memory_stats()
     solver, init = make_solver(big, f"rim100k: {RIM100K}", opts=refined)
+    big_init = init
     check(solver.probs.seg and not solver.probs.dense,
           "rim100k: the problem is not on the segment path")
     check_no_dense_block("rim100k", solver.probs, seg=True)
@@ -1453,6 +1480,314 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
         "rim_edgewise", solver, init, ("polar_so3",), card, steps=100,
         fused=False, runs=1)
     to_profile.append(("rim_edgewise", solver, init))
+    return big, big_init
+
+
+# The sharded phase (module docstring, 10): what each run holds, by name.
+SHARDED_STEPS, SHARDED_HALO_STEPS, SHARDED_STAR_STEPS = 150, 20, 50
+SHARDED_100K_STEPS = 25
+# Collective timeout of the spawned groups (a rank that waits this long for
+# the others raises) and the deadline of a whole spawn.
+SHARDED_TIMEOUT, SHARDED_DEADLINE = 180.0, 900.0
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def sharded_rank(rank, world_size, device, jobs, card):
+    """One rank of the sharded phase: for each job, build the sharded
+    solver on this rank's nodes once, then for each of the job's runs (a
+    halo strategy and a step count, the deterministic ones last) reset the
+    kernel and collective counts, initialize from the job's start, run the
+    steps with history and read the counts. A `timed` run then runs the
+    steps again from the same start without history, timed (as run_slice
+    times the single-process paths); a run with `profile` (at, steps) adds
+    profile_path's window. Returns one record per run."""
+    import numpy as np
+    import torch
+
+    import dpgo_tpu_torch  # noqa: F401  (sets true-f32 matmuls)
+    from dpgo_tpu_torch.parallel import spmd
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    from dpgo_tpu_torch.solvers.tnt import TNTParams
+
+    t_rank = time.perf_counter()
+    # The ranks share the host's cores.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    out = []
+    for job in jobs:
+        cls = (spmd.ShardedDPGOStarSolver if job["cls"] == "star"
+               else spmd.ShardedDPGOSolver)
+        tnt = job.get("tnt")
+        opts = MMOptions(accelerated=True,
+                         **({} if tnt is None else {"tnt": TNTParams(**tnt)}))
+        t0 = time.perf_counter()
+        base = cls(job["meas"], NUM_NODES, opts=opts, dtype=torch.float32,
+                   device=device)
+        _sync(device)
+        build_s = time.perf_counter() - t0
+        for run in job["runs"]:
+            if run["deterministic"]:
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            # One build serves every strategy: the solver reads `halo` at
+            # each exchange.
+            solver = copy.copy(base)
+            solver.halo = run["halo"]
+            if hasattr(solver, "fallbacks"):
+                solver.fallbacks = dict.fromkeys(solver.fallbacks, 0)
+            steps = run["steps"]
+            t0 = time.perf_counter()
+            st = solver.initialize(*job["init"])
+            _sync(device)
+            init_s = time.perf_counter() - t0
+            reset_counts()
+            solver.comm.reset()
+            syncs0 = solver.syncs.count
+            t0 = time.perf_counter()
+            st, _, (f, g) = solver.run_steps_history(st, 0, steps)
+            _sync(device)
+            secs = time.perf_counter() - t0
+            launches = kernel_counts()
+            comm = solver.comm
+            fh = f.cpu().numpy()
+            rec = {
+                "key": run["key"], "rank": rank,
+                "nodes": [solver.node_lo, solver.node_hi],
+                "backend": comm.backend, "device": str(device),
+                "build_s": build_s, "init_s": init_s, "steps": steps,
+                "history_it_s": steps / secs, "it_s": steps / secs,
+                "host_syncs_per_step": (solver.syncs.count - syncs0) / steps,
+                "f2": fh,
+                "finite": bool(np.isfinite(fh).all()
+                               and torch.isfinite(st.Z.t).all()
+                               and torch.isfinite(st.Z.R).all()),
+                "collectives_per_step": comm.calls / steps,
+                "bytes_per_step": comm.bytes / steps,
+                "host_copies_per_step": comm.host_copies / steps,
+                "k1": launches["stpcg"], "k2": launches["polar_so3"],
+                "fallbacks": dict(getattr(solver, "fallbacks", {})),
+                "deterministic": run["deterministic"], "timed": False}
+            if run["timed"]:
+                st = solver.initialize(*job["init"])
+                _sync(device)
+                syncs0 = solver.syncs.count
+                t0 = time.perf_counter()
+                solver.run_steps(st, 0, steps)
+                _sync(device)
+                rec.update(it_s=steps / (time.perf_counter() - t0),
+                           host_syncs_per_step=(solver.syncs.count - syncs0)
+                           / steps, timed=True)
+            if run.get("profile"):
+                rec["profile"] = profile_path(
+                    f"sharded {run['key']} rank {rank} ({comm.backend})",
+                    solver, job["init"], card, *run["profile"])
+            out.append(rec)
+            del solver, st
+        del base
+    # Seconds from the call to the return, on the last record.
+    out[-1]["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def _runs(prefix, halos, steps, deterministic=False, timed=False):
+    """Run specs keyed `prefix_halo`, numbered where a halo repeats."""
+    return [{"key": f"{prefix}_{h}" + (f"_{i}" if halos.count(h) > 1
+                                       else ""),
+             "halo": h, "steps": steps, "deterministic": deterministic,
+             "timed": timed}
+            for i, h in enumerate(halos)]
+
+
+def _warm_it_s(solver, init, steps):
+    """it/s of `steps` steps without history from the start `init`."""
+    import torch
+    st = solver.initialize(*init)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.run_steps(st, 0, steps)
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+def sharded_paths(card, rim, rim_init, big, big_init, refs, paths,
+                  launches, rim_solver):
+    """The sharded phase (module docstring, 10). `refs` holds the
+    single-process paths it is held to (rim, star, rim100k_prox: their 2f
+    histories, and their it/s printed beside). The host's speed drifts
+    over a call, so the NCCL runs' it/s are also set beside rim's
+    single-process solver (`rim_solver`) timed here just before and just
+    after their spawn. Fills `paths["sharded"]` and one `launches` entry
+    per run, summed over the ranks."""
+    import torch
+
+    from dpgo_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    halos = ["boundary", "boundary", "gather", "ring"]
+    rim_job = dict(meas=rim, init=rim_init, cls="hash",
+                   runs=_runs("rim", ["boundary"], SHARDED_STEPS, timed=True))
+    # NCCL at world size 1 also profiles rim's window (its it/s beside the
+    # single process's).
+    rim_profiled = dict(rim_job, runs=[dict(r, profile=(PROFILE_AT,
+                                                         PROFILE_STEPS))
+                                       for r in rim_job["runs"]])
+    jobs4 = [
+        # Two runs of one strategy, then each strategy, in the default mode
+        # and (last) under deterministic algorithms.
+        dict(rim_job, runs=rim_job["runs"]
+             + _runs("halos", halos, SHARDED_HALO_STEPS)
+             + _runs("halos_deterministic", halos, SHARDED_HALO_STEPS,
+                     deterministic=True)),
+        dict(meas=rim, init=rim_init, cls="star",
+             runs=_runs("star", ["boundary"], SHARDED_STAR_STEPS,
+                        timed=True)),
+        dict(meas=big, init=big_init, cls="hash", tnt={"max_iterations": 0},
+             runs=_runs("rim100k_prox", ["boundary"], SHARDED_100K_STEPS,
+                        timed=True)),
+    ]
+    # The deterministic runs go last: the setting stays on in the process.
+    jobs4 = jobs4[1:] + jobs4[:1]
+    runs = [("nccl1", "nccl", ["cuda:0"], [rim_profiled]),
+            ("gloo4", "gloo", ["cuda:0"] * 4, jobs4)]
+    if torch.cuda.device_count() >= 4:
+        runs.append(("nccl4", "nccl", [f"cuda:{r}" for r in range(4)],
+                     [rim_job]))
+    else:
+        print(f"sharded: nccl4 not run: {torch.cuda.device_count()} card(s) "
+              "(NCCL takes one rank per card)")
+    out = {}
+    for name, backend, devices, jobs in runs:
+        if backend == "nccl":
+            single_before = _warm_it_s(rim_solver, rim_init, SHARDED_STEPS)
+        t0 = time.perf_counter()
+        res = spawn(sharded_rank, len(devices), backend=backend,
+                    devices=devices, args=(jobs, card),
+                    timeout=SHARDED_TIMEOUT,
+                    deadline=SHARDED_DEADLINE)
+        secs = time.perf_counter() - t0
+        if backend == "nccl":
+            single = [single_before,
+                      _warm_it_s(rim_solver, rim_init, SHARDED_STEPS)]
+            r0 = [r for r in res[0] if r["key"] == "rim_boundary"][0]
+            ratio = r0["it_s"] / (sum(single) / 2)
+            print(f"sharded {name} [{card}]: single-process rim (this "
+                  f"process, without history) {single[0]:.2f} it/s just "
+                  f"before the spawn, {single[1]:.2f} just after; rank 0's "
+                  f"rim {r0['it_s']:.2f} it/s is {ratio:.3f} x their mean")
+        rank_s = max(recs[-1]["rank_s"] for recs in res)
+        print(f"sharded {name} [{card}]: {len(devices)} rank(s) on "
+              f"{devices}, backend {res[0][0]['backend']}, spawn "
+              f"{secs:.1f} s, of which in the ranks' function {rank_s:.1f} s "
+              "(the rest: process start, imports, group set-up)")
+        out[name] = {"ranks": len(devices), "backend": res[0][0]["backend"],
+                     "spawn_s": secs, "rank_s": rank_s, "runs": {}}
+        if backend == "nccl":
+            out[name].update(single_process_rim_it_s=single,
+                             rim_vs_single=ratio)
+        for i, rec in enumerate(res[0]):
+            key = rec["key"]
+            mine = [rank_recs[i] for rank_recs in res]
+            out[name]["runs"][key] = _sharded_record(
+                f"sharded {name} {key}", mine, refs, card)
+            launches[f"sharded_{name}_{key}"] = {
+                "polar_so3": sum(r["k2"] for r in mine), "polar_so3_f64": 0,
+                "stpcg": sum(r["k1"] for r in mine), "stpcg_d2": 0}
+        for job in ("halos", "halos_deterministic"):
+            if f"{job}_gather" in out[name]["runs"]:
+                _same_as_one_strategy(f"sharded {name} {job}",
+                                      out[name]["runs"], job,
+                                      hold=job == "halos_deterministic")
+        for run in out[name]["runs"].values():
+            run.pop("f2")
+    paths["sharded"] = dict(out, seconds=time.perf_counter() - t_phase,
+                            card=card)
+    print(f"sharded: phase {paths['sharded']['seconds']:.1f} s [{card}]")
+
+
+def _sharded_record(label, mine, refs, card):
+    """Check and print one sharded run (one record per rank): equal
+    histories on every rank, finite, the kernels launched on every rank,
+    and the 2f history held to the single-process run's (rim's for the
+    halo strategies' runs)."""
+    import numpy as np
+
+    key = mine[0]["key"]
+    f = mine[0]["f2"]
+    for r in mine:
+        check(r["key"] == key, f"{label}: the ranks ran different runs")
+        check(r["finite"], f"{label}: rank {r['rank']} non-finite")
+        check(np.array_equal(r["f2"], f), f"{label}: rank {r['rank']}'s 2f "
+              "history differs from rank 0's")
+        check(r["k2"] > 0, f"{label}: rank {r['rank']} launched no K2")
+        if not key.startswith("rim100k"):
+            check(r["k1"] > 0, f"{label}: rank {r['rank']} launched no K1")
+        check(r["fallbacks"] == mine[0]["fallbacks"],
+              f"{label}: the ranks' master fallbacks differ")
+    single = refs[next((k for k in ("rim100k_prox", "star")
+                        if key.startswith(k)), "rim")]
+    ref = single["f2_history"]
+    n = min(len(f), len(ref))
+    gap = float(np.max(np.abs(f[:n] - ref[:n]) / np.abs(ref[:n])))
+    r0 = mine[0]
+    timing = ("without history (the single process "
+              f"{single['it_s']:.2f}), {r0['history_it_s']:.2f} it/s with"
+              if r0["timed"] else "with history")
+    print(f"{label} [{card}]: backend {r0['backend']}, {r0['it_s']:.2f} it/s "
+          f"{timing} (rank 0; ranks {[round(r['it_s'], 2) for r in mine]}), "
+          f"{r0['host_syncs_per_step']:.2f} host syncs, "
+          f"{r0['collectives_per_step']:.2f} collectives, "
+          f"{r0['bytes_per_step']:.0f} B, {r0['host_copies_per_step']:.2f} "
+          f"host copies per step per rank; K1 per rank "
+          f"{[r['k1'] for r in mine]}, K2 per rank {[r['k2'] for r in mine]};"
+          f" build {max(r['build_s'] for r in mine):.1f} s, initialize "
+          f"{max(r['init_s'] for r in mine):.2f} s; 2f at {len(f)} "
+          f"{f[-1]:.6f}, single-process {ref[n - 1]:.6f}, largest relative "
+          f"gap over {n} steps {gap:.3e}"
+          + (f"; fallbacks {r0['fallbacks']}" if r0["fallbacks"] else ""))
+    check(gap <= 1e-3, f"{label}: 2f parts from the single-process run by "
+          f"{gap} > 1e-3")
+    return {"it_s": [r["it_s"] for r in mine], "timed": r0["timed"],
+            "history_it_s": [r["history_it_s"] for r in mine],
+            "single_process_it_s": single["it_s"],
+            "host_syncs_per_step": r0["host_syncs_per_step"],
+            "profile": r0.get("profile"), "f2_final": float(f[-1]),
+            "gap_to_single": gap, "steps": len(f),
+            "collectives_per_step": r0["collectives_per_step"],
+            "bytes_per_step": r0["bytes_per_step"],
+            "host_copies_per_step": r0["host_copies_per_step"],
+            "k1_per_rank": [r["k1"] for r in mine],
+            "k2_per_rank": [r["k2"] for r in mine],
+            "build_s": [r["build_s"] for r in mine],
+            "init_s": [r["init_s"] for r in mine],
+            "fallbacks": r0["fallbacks"], "backend": r0["backend"],
+            "deterministic": r0["deterministic"], "f2": f.tolist()}
+
+
+def _same_as_one_strategy(label, runs, job, hold):
+    """The exchange only moves bytes: the strategies must part from the
+    first boundary run no more than a second boundary run does (held with
+    `hold`, the deterministic runs; printed always). `runs` is keyed
+    `job_halo[_i]`."""
+    import numpy as np
+
+    base = np.asarray(runs[f"{job}_boundary_0"]["f2"])
+
+    def spread(key):
+        f = np.asarray(runs[key]["f2"])
+        return float(np.max(np.abs(f - base) / np.abs(base)))
+
+    same = spread(f"{job}_boundary_1")
+    others = {k: spread(f"{job}_{k}") for k in ("gather", "ring")}
+    print(f"{label}: 2f relative spread from the first boundary run: "
+          f"second boundary run {same:.3e}, gather {others['gather']:.3e}, "
+          f"ring {others['ring']:.3e}")
+    if hold:
+        for k, v in others.items():
+            check(v <= same, f"{label}: {k} parts from boundary by {v}, "
+                  f"more than two boundary runs ({same})")
 
 
 def main() -> int:
@@ -1769,8 +2104,8 @@ def main() -> int:
     polish_certify_paths(root, dev, card, rim, rim_est, paths, launches)
 
     # Path 7: node blocks above the dense limit.
-    large_block_paths(root, dev, card, make_solver, rim, paths, launches,
-                      to_profile)
+    big, big_init = large_block_paths(root, dev, card, make_solver, rim,
+                                      paths, launches, to_profile)
 
     # torch.profiler runs only now, after every timed run. The paths above
     # the dense limit make thousands of launches per step, and the profiler
@@ -1781,9 +2116,17 @@ def main() -> int:
         at, steps = windows.get(name, (PROFILE_AT, PROFILE_STEPS))
         paths[name]["profile"] = profile_path(name, solver, init, card, at,
                                               steps)
+    # rim's solver stays for the sharded phase's timings.
+    rim_solver = to_profile[0][1]
     del to_profile, solver
     paths["mm_dchordal"]["dchordal_profile"] = profile_dchordal(rim, dev,
                                                                 card)
+
+    # Path 10: the sharded solvers, held to the single-process histories.
+    refs = {name: paths[name] for name in ("rim", "star", "rim100k_prox")}
+    sharded_paths(card, rim, rim_init, big, big_init, refs, paths, launches,
+                  rim_solver)
+    del rim_solver
 
     def total(kern):
         return sum(c[kern] for c in launches.values())
@@ -1818,6 +2161,8 @@ def main() -> int:
         entry("stpcg_d2", "dpgo_tpu_torch/csrc/stpcg.cu",
               "dpgo_tpu/ops/pallas_stpcg.py:140", k1_d2),
     ]
+    for p in paths.values():
+        p.pop("f2_history", None)
     secs = time.perf_counter() - t_start
     print(f"chip_smoke: whole run {secs:.1f} s [{card}]")
     print(json.dumps({"paths": paths, "k1_phases": k1, "seconds": secs}))

@@ -67,11 +67,12 @@ class DPGOSolver:
         precon_cond = self.opts.precon_cond
         if precon_cond is None:
             precon_cond = 1e6 if dtype == torch.float64 else 1e5
-        self.probs = build_node_problems(
-            self.mg, xi=self.opts.regularizer, loss=loss, loss_reg=loss_reg,
+        self._build_kw = dict(
+            xi=self.opts.regularizer, loss=loss, loss_reg=loss_reg,
             precon_cond=precon_cond, dense_limit=dense_limit,
             segment_limit=segment_limit, seg_size=seg_size, dtype=dtype,
             device=self.device)
+        self.probs = self._build_problems()
         self.edges = EdgeData.from_measurements(
             meas, node_of=self.part.node_of, dtype=dtype, device=self.device)
         self.loss = loss
@@ -99,6 +100,33 @@ class DPGOSolver:
         # update builds the reweighted problems once per step and the next
         # iterate runs on them.
         self._reweighted = (None, self.probs)
+
+    # ------------------------------------------------------------ hooks
+    # The single-process solver holds every node. The sharded solvers
+    # (parallel/spmd.py) hold a node range and override these.
+
+    def _build_problems(self, **kw) -> NodeProblem:
+        """The problems of the nodes this solver holds (`kw`: extra
+        arguments of build_node_problems)."""
+        return build_node_problems(self.mg, **self._build_kw, **kw)
+
+    def _exchange_halos(self, Z: NodeState) -> NodeState:
+        """Refresh every held node's halo from the owners' own state."""
+        return communicate_star(Z, self.halo_owner, self.halo_lpose,
+                                self.halo_dc)
+
+    def _sum_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of x over the processes that share the node axis."""
+        return x
+
+    def _agree(self, flag: bool) -> bool:
+        """The flag every process takes (the first process's)."""
+        return flag
+
+    def _polish_problems(self) -> NodeProblem:
+        """The problems of every node, which the polish preconditions
+        with."""
+        return self.probs
 
     # ----------------------------------------------------------- init
 
@@ -182,7 +210,7 @@ class DPGOSolver:
         """Initialization (centralized chordal by default, DChordal with
         dist_init=True), then the first update."""
         st = init_state(self.probs, self._start(t, R, dist_init), self.opts)
-        st = communicate(st, self.halo_owner, self.halo_lpose, self.halo_dc)
+        st = st.replace(Z=self._exchange_halos(st.Z))
         st = st.replace(Z_prev=st.Z)
         return self._update(st, 0, first=True)
 
@@ -209,7 +237,7 @@ class DPGOSolver:
         iterate = {"amm": mm_mod.iterate_amm, "aa": mm_mod.iterate_aa}.get(
             mm_mod.resolve_scheme(self.opts), mm_mod.iterate_mm)
         st = iterate(self.problems(st), st, self.opts, k, self.syncs)
-        st = communicate(st, self.halo_owner, self.halo_lpose, self.halo_dc)
+        st = st.replace(Z=self._exchange_halos(st.Z))
         # Z_prev (stamped inside iterate) is the previous anchor including
         # the halo of the previous round's communicate.
         return self._update(st, k + 1, first=False)
@@ -229,13 +257,14 @@ class DPGOSolver:
         fs, gs = [], []
         for i in range(num_steps):
             st = self._step(st, k0 + i)
-            fs.append(2.0 * torch.sum(st.fobj))
-            gs.append(2.0 * torch.sqrt(torch.sum(st.gradFnorm
-                                                 * st.gradFnorm)))
+            fs.append(torch.sum(st.fobj))
+            gs.append(torch.sum(st.gradFnorm * st.gradFnorm))
         if not fs:
             empty = torch.zeros(0, dtype=self.dtype, device=self.device)
             return st, k0, (empty, empty)
-        return st, k0 + num_steps, (torch.stack(fs), torch.stack(gs))
+        h = self._sum_over_ranks(torch.stack([torch.stack(fs),
+                                              torch.stack(gs)]))
+        return st, k0 + num_steps, (2.0 * h[0], 2.0 * torch.sqrt(h[1]))
 
     def _metrics(self, st: MMState):
         """Exact global (2 f, 2 |grad|) at the current own estimates."""
@@ -319,7 +348,7 @@ class DPGOSolver:
         params = polish_mod.polish_params(outer=outer, tcg=tcg)
         kernels = self.probs.kernels
         t, R = self._place_global(*self.gather_global(st))
-        precon = (self._node_block_precondition(self.probs)
+        precon = (self._node_block_precondition(self._polish_problems())
                   if node_precon else None)
         if coarse and precon is not None:
             model0 = polish_mod.global_tnt_model(
@@ -388,7 +417,8 @@ class DPGOSolver:
             if log_iterates:
                 t, R = self.gather_global(st)
                 iterates.append((t.cpu().numpy(), R.cpu().numpy()))
-            return callback is not None and callback(k, st, f, g)
+            return self._agree(callback is not None
+                               and bool(callback(k, st, f, g)))
 
         stopped = record(st, 0)
         done = 0
@@ -422,16 +452,15 @@ class DPGOStarSolver(DPGOSolver):
     def initialize(self, t=None, R=None, dist_init: bool = False):
         Z = self._start(t, R, dist_init)
         st = star_mod.init_star_state(self.probs, Z, 0.0)
-        st = st.replace(Z=communicate_star(st.Z, self.halo_owner,
-                                           self.halo_lpose, self.halo_dc))
+        st = st.replace(Z=self._exchange_halos(st.Z))
         st = st.replace(Z_prev=st.Z, F=self._global_f(st.Z.t, st.Z.R))
         return star_mod.update_star(self.probs, st, self.opts, first=True)
 
     def _step(self, st, k: int):
         st = star_mod.iterate_star(self.probs, st, self.opts, self._global_f,
-                                   k, self.syncs, self.fallbacks)
-        st = st.replace(Z=communicate_star(st.Z, self.halo_owner,
-                                           self.halo_lpose, self.halo_dc))
+                                   k, self.syncs, self.fallbacks,
+                                   reduce=self._sum_over_ranks)
+        st = st.replace(Z=self._exchange_halos(st.Z))
         return star_mod.update_star(self.probs, st, self.opts, first=False)
 
 

@@ -246,3 +246,13 @@ def build_multigraph(meas: Measurements, num_nodes: int
         mg.e_tau[a, :m1] = g.inter.tau
         mg.e_mask[a, :m1] = True
     return part, nodes, mg
+
+
+def node_range(mg: MultiGraph, lo: int, hi: int) -> MultiGraph:
+    """Nodes [lo, hi) of a MultiGraph with the global padding kept (n0_max,
+    n1_max, m0_max, m1_max) and the global node ids in `halo_owner`: the
+    graph one rank of a sharded solver builds its problems from."""
+    per_node = {f.name: getattr(mg, f.name)[lo:hi]
+                for f in dataclasses.fields(mg)
+                if isinstance(getattr(mg, f.name), np.ndarray)}
+    return dataclasses.replace(mg, num_nodes=hi - lo, **per_node)

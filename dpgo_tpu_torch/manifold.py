@@ -80,3 +80,18 @@ def proj_tangent(R: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     P = V - R sym(R^T V)."""
     return V - sym_block_diag_product(R, R, V)
 
+
+def retract(R: torch.Tensor, V: torch.Tensor, kernel: bool = True
+            ) -> torch.Tensor:
+    """Add-then-project retraction (SOdProduct::retract)."""
+    return project_sod(R + V, kernel)
+
+
+def random_rotations(generator: torch.Generator, n: int, d: int,
+                     dtype=torch.float64, device=None) -> torch.Tensor:
+    """n rotations of SO(d): standard normal matrices drawn from
+    `generator` (on its device unless `device` names one), projected."""
+    device = generator.device if device is None else device
+    A = torch.randn((n, d, d), generator=generator, dtype=dtype,
+                    device=device)
+    return project_sod(A)

@@ -18,6 +18,7 @@ first launch, and again cheaply after that.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -95,29 +96,43 @@ def _run_all(cmds: list[list[str]]) -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the library is missing or stale; returns its
-    path."""
+    path. The check and the build run under a file lock on the build
+    directory, so ranks that start together compile once; the library and
+    its stamp are renamed into place, so no process loads a half-written
+    file."""
     digest = source_hash()
     stamp = LIB_PATH + ".sha256"
-    if os.path.exists(LIB_PATH) and os.path.exists(stamp):
+
+    def fresh() -> bool:
+        if not (os.path.exists(LIB_PATH) and os.path.exists(stamp)):
+            return False
         with open(stamp) as fh:
-            if fh.read().strip() == digest:
-                return LIB_PATH
+            return fh.read().strip() == digest
+
+    if fresh():
+        return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    ptxas = ["--ptxas-options=-v"] if verbose else []
-    srcs = [s for s in sources() if s.endswith(".cu")]
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
-        log = _run_all([[nvcc, *ARCH_FLAGS, *ptxas, "-std=c++17", "-O3", "-c",
-                         "-Xcompiler", "-fPIC", "-lineinfo", "-o", o, s]
-                        for s, o in zip(srcs, objs)])
-        lib = os.path.join(tmp, os.path.basename(LIB_PATH))
-        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
-        os.replace(lib, LIB_PATH)
-    if verbose:
-        print(log)
-    with open(stamp, "w") as fh:
-        fh.write(digest)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if fresh():  # another process built it while this one waited
+            return LIB_PATH
+        nvcc = _nvcc()
+        ptxas = ["--ptxas-options=-v"] if verbose else []
+        srcs = [s for s in sources() if s.endswith(".cu")]
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                    for s in srcs]
+            log = _run_all([[nvcc, *ARCH_FLAGS, *ptxas, "-std=c++17", "-O3",
+                             "-c", "-Xcompiler", "-fPIC", "-lineinfo", "-o",
+                             o, s] for s, o in zip(srcs, objs)])
+            lib = os.path.join(tmp, os.path.basename(LIB_PATH))
+            _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+            os.replace(lib, LIB_PATH)
+        if verbose:
+            print(log)
+        with open(stamp + ".tmp", "w") as fh:
+            fh.write(digest)
+        os.replace(stamp + ".tmp", stamp)
     return LIB_PATH
 
 

@@ -46,7 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from dpgo_tpu_torch.graph import MultiGraph
+from dpgo_tpu_torch.graph import MultiGraph, node_range
 from dpgo_tpu_torch.losses import Loss, loss_value, loss_weight
 from dpgo_tpu_torch.manifold import (proj_tangent, project_sod,
                                      sym_block_diag_product)
@@ -82,6 +82,12 @@ class NodeState:
     def __sub__(self, other: "NodeState") -> "NodeState":
         return NodeState(t=self.t - other.t, R=self.R - other.R,
                          th=self.th - other.th, Rh=self.Rh - other.Rh)
+
+    def own(self):
+        return self.t, self.R
+
+    def with_own(self, t, R) -> "NodeState":
+        return NodeState(t=t, R=R, th=self.th, Rh=self.Rh)
 
 
 # Array fields of NodeProblem, in the JAX package's names.
@@ -305,6 +311,10 @@ class NodeProblem:
         return 0.5 * (_nsum(rt * rt) + _nsum(rR * rR)) \
             + 0.25 * _nsum(loss_value(self.loss, s, self.loss_reg))
 
+    def surrogate_g_f_fobj(self, state: NodeState):
+        g, f, fobj, _ = self.surrogate_g_f_fobj_res(state)
+        return g, f, fobj
+
     def surrogate_g_f_fobj_res(self, state: NodeState):
         """(g, f, fobj, zres) with the residual halves computed once; zres =
         ((rt, rR), (u_s, E_s)) are the anchor residuals the next iterate's
@@ -451,6 +461,14 @@ class NodeProblem:
         else:
             Gt, GR = self.G_apply(state.t, state.R)
         return Gt + g[0], GR + g[1]
+
+    def riemannian_grad(self, state: NodeState, Df=None):
+        """(grad_t, grad_R): Df with its rotation part projected onto the
+        tangent space at the own rotations; Df defaults to the Euclidean
+        gradient at `state`."""
+        if Df is None:
+            Df = self.euclidean_Df(state, self.surrogate_g(state))
+        return Df[0], proj_tangent(state.R, Df[1])
 
     def q_gap(self, dstate: NodeState) -> torch.Tensor:
         """1/2 <Q dZ, dZ> = -1/4 sum_inter |A_tail dZ_tail - A_head dZ_head|^2
@@ -1111,7 +1129,8 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
                         seg_size: int = 128,
                         seg_cg_iters: int = 20,
                         seg_cg_tol: float | None = None,
-                        dtype=torch.float64, device=None) -> NodeProblem:
+                        dtype=torch.float64, device=None,
+                        nodes: tuple[int, int] | None = None) -> NodeProblem:
     """Build a stacked NodeProblem (leading node axis) from a MultiGraph:
     dpgo_tpu/problem.py::build_node_problems as the same host numpy in
     float64, then moved to `device` in `dtype` (the CUDA card unless
@@ -1121,8 +1140,17 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
     [n0, n0] array is formed; `seg_cg_tol` None = 1e-7 in float64, 3e-6 in
     float32), blocks with n0 d above `dense_limit` the edge-wise path (no
     [n0 d, n0 d] array), the others the dense path; see the module
-    docstring."""
+    docstring.
+
+    `nodes=(lo, hi)` builds nodes [lo, hi) only (one rank of a sharded
+    solver): the same arrays as rows lo..hi-1 of the whole build, except
+    that the widths padded to a maximum over nodes (null-space and
+    inter-pose columns, segment pairs) are this range's maxima."""
     device = resolve_device(device)
+    node0 = 0
+    if nodes is not None:
+        node0 = nodes[0]
+        mg = node_range(mg, *nodes)
     N, n0m, d = mg.num_nodes, mg.n0_max, mg.d
     seg = n0m > segment_limit
     dense = n0m * d <= dense_limit and not seg
@@ -1268,7 +1296,7 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
 
         from dpgo_tpu_torch.ops.eigen import lambda_max_lanczos
         for a in range(N):
-            lam_max[a] = lambda_max_lanczos(mG11_d[a], seed=a)
+            lam_max[a] = lambda_max_lanczos(mG11_d[a], seed=node0 + a)
 
         # Dense regularized inverse of the full reduced Hessian (the
         # reference's RegularizedCholesky role, lambda_max by Lanczos as
@@ -1277,7 +1305,7 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
         # term and the tangent projection.
         precon_dense = np.zeros((N, nd, nd))
         for a in range(N):
-            lam_h = lambda_max_lanczos(Hred_d[a], seed=1000 + a)
+            lam_h = lambda_max_lanczos(Hred_d[a], seed=1000 + node0 + a)
             precon_dense[a] = np.linalg.inv(
                 Hred_d[a] + (lam_h / precon_cond) * np.eye(nd))
     else:

@@ -112,12 +112,15 @@ def update_star(probs: NodeProblem, st: StarState, opts: MMOptions,
 
 def iterate_star(probs: NodeProblem, st: StarState, opts: MMOptions,
                  global_f_fn, k: int, syncs: HostSyncs | None = None,
-                 fired: dict | None = None) -> StarState:
+                 fired: dict | None = None, reduce=None) -> StarState:
     """One master iteration (DPGOStar::iterate).
 
     global_f_fn(t_own [N, n0, d], R_own [N, n0, d, d]) -> scalar exact global
     objective of the stacked candidate states. `fired` (optional) counts
-    the master fallbacks taken, by name (FALLBACKS)."""
+    the master fallbacks taken, by name (FALLBACKS). `reduce` sums the
+    psi-test's squared step over the processes that hold the other nodes
+    (identity by default), so that every master decision is taken on
+    global values."""
     syncs = syncs or HostSyncs()
     gamma = st.gamma
 
@@ -154,8 +157,9 @@ def iterate_star(probs: NodeProblem, st: StarState, opts: MMOptions,
                                 anchor=anchor, precon=precon_kind)
 
     def sqdiff(at, aR):
-        return (torch.sum((at - st.Z.t) ** 2)
-                + torch.sum((aR - st.Z.R) ** 2))
+        sq = (torch.sum((at - st.Z.t) ** 2)
+              + torch.sum((aR - st.Z.R) ** 2))
+        return sq if reduce is None else reduce(sq)
 
     def hit(name):
         if fired is not None:

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -53,3 +55,26 @@ class HostSyncs:
         entry = self.loops.setdefault(loop, [0, 0])
         entry[0] += 1
         entry[1] += trips
+
+
+class Stopwatch:
+    """tick()/tock() wall-clock timer (the reference's
+    Optimization::Util::Stopwatch); tock returns seconds since tick.
+    `tock(sync=x)` first waits for the card that holds tensor `x` (or for
+    the CUDA device `x`), since the card runs behind the host."""
+
+    def __init__(self):
+        self._t0 = None
+
+    def tick(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def tock(self, sync=None) -> float:
+        if sync is not None:
+            dev = sync.device if isinstance(sync, torch.Tensor) \
+                else torch.device(sync)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        if self._t0 is None:
+            raise RuntimeError("tock() before tick()")
+        return time.perf_counter() - self._t0

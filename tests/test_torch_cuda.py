@@ -712,3 +712,53 @@ def test_native_library_built_by_the_port(dev):
     got, want = native.read_g2o_file_native(path), read_g2o_file(path)
     np.testing.assert_array_equal(got.i, want.i)
     np.testing.assert_allclose(got.R, want.R, rtol=1e-12, atol=1e-12)
+
+
+def _sharded_on_card(backend, devices, names):
+    """The cases `names` of tests/torch_spmd_ranks.py on grid3D_synth (8
+    nodes, float64) in a group of len(devices) ranks, and the
+    single-process solver's results on the card."""
+    import torch_spmd_ranks as ranks  # tests/ (pytest puts it on the path)
+
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+    from dpgo_tpu_torch.parallel.launch import spawn
+
+    graphs = {"d3": read_g2o_file(os.path.join(REPO, "artifacts",
+                                               "grid3D_synth.g2o")),
+              "num_nodes": 8}
+    world = spawn(ranks.run_cases, len(devices), backend=backend,
+                  devices=devices, args=(graphs, names), deadline=300.0)
+    single = {}
+    for name in names:
+        solver, c = ranks.make_solver(name, graphs, "cuda", sharded=False)
+        single[name] = ranks.drive(solver, c)
+    return world, single
+
+
+@pytest.mark.cuda
+def test_sharded_nccl_world1_matches_single(dev):
+    """ShardedDPGOSolver and ShardedDPGOStarSolver over NCCL at world size 1
+    on the card: the single-process solvers' 2f histories (rtol 1e-9; float
+    index_add_ on the card is not deterministic), no host copies."""
+    names = ["acc_boundary", "star"]
+    world, single = _sharded_on_card("nccl", ["cuda:0"], names)
+    for name in names:
+        res = world[0][name]
+        assert res["backend"] == "nccl" and res["comm"][2] == 0
+        np.testing.assert_allclose(res["f"], single[name]["f"], rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_sharded_gloo_ranks_share_one_card(dev):
+    """Two gloo ranks on cuda:0, each halo strategy: every collective's
+    buffers are staged through the host (two copies each), and the 2f
+    history is the single-process solver's (rtol 1e-9) on both ranks."""
+    names = ["acc_boundary", "acc_gather", "acc_ring"]
+    world, single = _sharded_on_card("gloo", ["cuda:0", "cuda:0"], names)
+    for name in names:
+        for out in world:
+            res = out[name]
+            calls, _, copies = res["comm"]
+            assert res["backend"] == "gloo" and copies == 2 * calls > 0
+            np.testing.assert_allclose(res["f"], single[name]["f"],
+                                       rtol=1e-9)

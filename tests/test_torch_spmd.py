@@ -1,0 +1,465 @@
+"""The sharded solvers (dpgo_tpu_torch/parallel/) on the CPU with gloo, in
+f64, against the JAX package's single-process solvers and the port's.
+
+One process group of 2 ranks and one of 4 (module-scoped fixtures, one spawn
+each) run every case of tests/torch_spmd_ranks.py on the 64-pose, d = 3,
+40-loop-closure graph with 8 nodes of tests/test_spmd.py (d = 2: the same
+generator); each case is a test of its own. The JAX package's sharded Star
+at psi = phi = 1e3 is run in a subprocess (it deadlocks; see
+test_jax_sharded_star_forced_fallbacks_deadlock)."""
+
+import concurrent.futures
+import dataclasses
+import functools
+import multiprocessing
+import os
+import subprocess
+import sys
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_spmd_ranks as ranks  # tests/ (pytest puts it on the path)
+from tests.synthetic import random_pose_graph
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NUM_NODES = 8
+WORLDS = (2, 4)
+TORCHRUN_STEPS = 6
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _torch_meas(meas):
+    from dpgo_tpu_torch.io.g2o import Measurements
+    return Measurements(**{f.name: getattr(meas, f.name)
+                           for f in dataclasses.fields(meas)})
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_graph_truth(d):
+    return random_pose_graph(np.random.default_rng(42), num_poses=64, d=d,
+                             loop_closures=40)
+
+
+def _jax_graph(d):
+    return _jax_graph_truth(d)[0]
+
+
+def _truth():
+    """The d = 3 graph's true (t, R)."""
+    return _jax_graph_truth(3)[1:]
+
+
+def _graphs():
+    return {"d3": _torch_meas(_jax_graph(3)), "d2": _torch_meas(_jax_graph(2)),
+            "num_nodes": NUM_NODES}
+
+
+JAX_STAR_SCRIPT = """
+import jax
+jax.config.update('jax_platforms', 'cpu')
+jax.config.update('jax_enable_x64', True)
+import jax.numpy as jnp, numpy as np
+from tests.synthetic import random_pose_graph
+from dpgo_tpu.parallel.spmd import ShardedDPGOStarSolver
+from dpgo_tpu.solvers.mm import MMOptions
+meas, _, _ = random_pose_graph(np.random.default_rng(42), num_poses=64, d=3,
+                               loop_closures=40)
+s = ShardedDPGOStarSolver(meas, num_nodes=8, opts=MMOptions(psi=1e3, phi=1e3))
+st = s.initialize()
+for k in range(2):
+    st = s._step(st, jnp.asarray(k, jnp.int32))
+    print('step', k, 'done', float(s._metrics(st)[0]), flush=True)
+"""
+
+
+# The JAX references, computed in a pool of processes while the ranks run
+# (costliest first); the halo strategies share their JAX run.
+JAX_CASES = ("acc_boundary", "star", "star_psi", "huber_dynamic",
+             "plain_boundary", "segment", "d2", "polish", "aa")
+
+
+def _jax_ref(name):
+    """The JAX package's single-process solver on the case (in a pool
+    process: CPU, float64): (2f history, 2|grad| history) or the polish's
+    2f."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    from dpgo_tpu import driver
+    from dpgo_tpu.losses import Loss
+    from dpgo_tpu.solvers.mm import MMOptions
+    from dpgo_tpu.solvers.tnt import TNTParams
+
+    c = ranks.case_setup(name)
+    opts = dict(c["opts"])
+    if "tnt" in opts:
+        opts["tnt"] = TNTParams(**dataclasses.asdict(opts["tnt"]))
+    cls = driver.DPGOStarSolver if c["cls"] == "star" else driver.DPGOSolver
+    s = cls(_jax_graph(2 if c["graph"] == "d2" else 3), num_nodes=NUM_NODES,
+            opts=MMOptions(**opts), loss=Loss(c["loss"]),
+            loss_reg=ranks.LOSS_REG, dtype=jnp.float64, **c["kw"])
+    st = s.initialize()
+    if not c["steps"]:
+        _, f2 = s.polish(st, **ranks.POLISH)
+        return float(f2)
+    _, _, (f, g) = s.run_steps_history(st, jnp.zeros((), jnp.int32),
+                                       c["steps"])
+    return np.asarray(f), np.asarray(g)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def background(tmp_path_factory):
+    """Everything slow, started at once: both spawned worlds (`worlds`:
+    {world size: future of the ranks' results}), the JAX references
+    (`jax`: {case: future}), the JAX sharded-Star subprocess (`star`) and
+    the torchrun group (`torchrun`), with their output files in `logs`."""
+    from dpgo_tpu_torch.io.g2o import write_g2o_file
+    from dpgo_tpu_torch.parallel.launch import spawn
+
+    threads = concurrent.futures.ThreadPoolExecutor(max_workers=len(WORLDS))
+    jax_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    bg = types.SimpleNamespace(
+        worlds={w: threads.submit(spawn, ranks.run_cases, w, backend="gloo",
+                                  devices="cpu", args=(_graphs(),),
+                                  timeout=60.0, deadline=300.0)
+                for w in WORLDS},
+        jax={name: jax_pool.submit(_jax_ref, name) for name in JAX_CASES},
+        logs=tmp_path_factory.mktemp("spmd"))
+    logs = bg.logs
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+               "--xla_cpu_collective_call_warn_stuck_timeout_seconds=1 "
+               "--xla_cpu_collective_call_terminate_timeout_seconds=3")
+    with open(logs / "out", "w") as out, open(logs / "err", "w") as err:
+        bg.star = subprocess.Popen([sys.executable, "-c", JAX_STAR_SCRIPT],
+                                   env=env, cwd=REPO, stdout=out, stderr=err)
+    # torchrun with 2 ranks on the graph written as .g2o text.
+    g2o = str(logs / "graph.g2o")
+    write_g2o_file(g2o, *_truth(), _graphs()["d3"])
+    with open(logs / "torchrun_out", "w") as out, \
+            open(logs / "torchrun_err", "w") as err:
+        bg.torchrun = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2",
+             os.path.join(REPO, "tests", "torch_spmd_torchrun.py"), g2o,
+             str(NUM_NODES), str(TORCHRUN_STEPS), str(logs / "torchrun")],
+            env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+            cwd=REPO, stdout=out, stderr=err)
+    try:
+        yield bg
+    finally:
+        for p in (bg.star, bg.torchrun):
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        threads.shutdown(wait=True)
+        jax_pool.shutdown(wait=True, cancel_futures=True)
+        for f in list(bg.worlds.values()) + list(bg.jax.values()):
+            if not f.cancelled():
+                f.exception()
+
+
+@pytest.fixture(scope="module", params=WORLDS, ids=lambda w: f"world{w}")
+def world(request, background):
+    """The ranks' results of one world, on demand."""
+    return lambda: background.worlds[request.param].result(timeout=360)
+
+
+@pytest.fixture
+def jax_ref(background):
+    """The JAX reference of a case, on demand."""
+    return lambda name: background.jax[name].result(timeout=360)
+
+
+@functools.lru_cache(maxsize=None)
+def _single(name):
+    """The port's single-process solver on the case (rank results are held
+    to its rows)."""
+    torch.set_num_threads(1)
+    solver, c = ranks.make_solver(name, _graphs(), "cpu", sharded=False)
+    return ranks.drive(solver, c), solver.num_nodes
+
+
+def _check_rows(world, name):
+    """Every rank's own and halo rows equal the single-process solver's
+    rows (rtol 1e-12), and every rank reports the same histories."""
+    ref, N = _single(name)
+    world = world()
+    from dpgo_tpu_torch.parallel.spmd import take_nodes
+    for r, out in enumerate(world):
+        res = out[name]
+        assert res["backend"] == "gloo"
+        lo, hi = res["node_lo"], res["node_hi"]
+        assert (lo, hi) == (r * N // len(world), (r + 1) * N // len(world))
+        for key in ("t", "R", "th"):
+            np.testing.assert_allclose(res[key],
+                                       take_nodes(ref[key], lo, hi, N),
+                                       rtol=1e-12, atol=1e-13)
+        np.testing.assert_allclose(res["exact"], ref["exact"], rtol=1e-12)
+        for key in ("f", "g", "polish_f", "exact"):
+            if key in res:
+                np.testing.assert_array_equal(res[key], world[0][name][key])
+    return world[0][name], ref
+
+
+@pytest.mark.parametrize("name", ranks.HASH_CASES)
+def test_sharded_matches_jax_and_single(world, jax_ref, name):
+    """AMM-PGO# and MM-PGO, each halo strategy: 2f at rtol 1e-9 and
+    2|grad| at rtol 1e-6 / atol 1e-9 against JAX's DPGOSolver (as
+    tests/test_spmd.py holds JAX's sharded solver), and rtol 1e-12 against
+    the port's single-process solver."""
+    jf, jg = jax_ref(name.split("_")[0] + "_boundary")  # no halo in JAX
+    res, ref = _check_rows(world, name)
+    np.testing.assert_allclose(res["f"], jf, rtol=1e-9)
+    np.testing.assert_allclose(res["g"], jg, rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(res["f"], ref["f"], rtol=1e-12)
+    np.testing.assert_allclose(res["g"], ref["g"], rtol=1e-12)
+    # One exchange per step and at initialize, one history and one metrics
+    # collective; the ring runs _ring_rounds rounds per exchange.
+    exchanges = ranks.STEPS + 1
+    per = 1 if not name.endswith("ring") else _rounds(len(world()))
+    assert res["comm"][0] == exchanges * per + 2
+    assert res["comm"][2] == 0  # no host copies on the CPU
+
+
+@functools.lru_cache(maxsize=None)
+def _rounds(world_size):
+    from dpgo_tpu_torch.graph import build_multigraph
+    from dpgo_tpu_torch.parallel.spmd import _ring_rounds
+    _, _, mg = build_multigraph(_graphs()["d3"], NUM_NODES)
+    return _ring_rounds(mg, world_size)
+
+
+@pytest.mark.parametrize("name", ["huber_dynamic", "aa", "d2", "segment"])
+def test_sharded_variants_match_jax_and_single(world, jax_ref, name):
+    """Huber + dynamic rescale (10 steps), Anderson acceleration, d = 2 and
+    the forced segment regime (STPCG capped at 10 iterations, as in
+    tests/test_torch_segment.py): 2f at rtol 1e-9 against JAX, 2f and
+    2|grad| at rtol 1e-12 against the port's single-process solver."""
+    jf, _ = jax_ref(name)
+    res, ref = _check_rows(world, name)
+    np.testing.assert_allclose(res["f"], jf, rtol=1e-9)
+    np.testing.assert_allclose(res["f"], ref["f"], rtol=1e-12)
+    np.testing.assert_allclose(res["g"], ref["g"], rtol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["star", "star_psi"])
+def test_sharded_star_matches_jax_and_single(world, jax_ref, name):
+    """AMM-PGO* at the default psi and at psi = phi = 1e3, which forces
+    master fallbacks: 2f at rtol 1e-9 against JAX's DPGOStarSolver and
+    1e-12 against the port's; the fallback counts equal on every rank and
+    to the single-process port's."""
+    jf, _ = jax_ref(name)
+    res, ref = _check_rows(world, name)
+    np.testing.assert_allclose(res["f"], jf, rtol=1e-9)
+    np.testing.assert_allclose(res["f"], ref["f"], rtol=1e-12)
+    for out in world():
+        assert out[name]["fallbacks"] == ref["fallbacks"]
+    if name == "star_psi":
+        assert sum(ref["fallbacks"].values()) > 0
+
+
+def test_sharded_local_gauge_matches_single(world):
+    """Local gauge centering on (halo_dc shifts the exchanged translations)
+    with the ring exchange: the port's single-process solver's histories
+    and rows (rtol 1e-12)."""
+    res, ref = _check_rows(world, "gauge_ring")
+    np.testing.assert_allclose(res["f"], ref["f"], rtol=1e-12)
+    np.testing.assert_allclose(res["g"], ref["g"], rtol=1e-12)
+
+
+def test_sharded_polish_matches_jax(world, jax_ref):
+    """polish(outer=6, tcg=12, coarse=True) from the chordal start: 2f at
+    rtol 1e-9 against JAX's local polish, 1e-12 against the port's."""
+    jf = jax_ref("polish")
+    res, ref = _check_rows(world, "polish")
+    np.testing.assert_allclose(res["polish_f"], jf, rtol=1e-9)
+    np.testing.assert_allclose(res["polish_f"], ref["polish_f"], rtol=1e-12)
+
+
+def test_sharded_run_steps_equals_stepping(world):
+    assert all(out["run_steps"] for out in world())
+
+
+def test_sharded_run_stops_where_rank0_asks(world):
+    """run()'s callback asks to stop at iteration 4 on rank 0 and at 2 on
+    the others: every rank stops at 4, with the single-process run's rows
+    (rtol 1e-12)."""
+    torch.set_num_threads(1)
+    s, _ = ranks.make_solver("acc_boundary", _graphs(), "cpu",
+                             sharded=False)
+    _, ref = s.run(4, record_every=2)
+    for out in world():
+        hist = out["run_callback"]
+        np.testing.assert_array_equal(hist[:, 0], [0, 2, 4])
+        np.testing.assert_allclose(hist, ref, rtol=1e-12)
+
+
+def test_sharded_node_and_refine_stats_are_the_rows(world):
+    """node_stats and refine_stats of a rank are its rows of the
+    single-process solver's."""
+    from dpgo_tpu_torch.parallel.spmd import take_nodes
+    ref, N = _single("acc_boundary")
+    for out in world():
+        res = out["acc_boundary"]
+        lo, hi = res["node_lo"], res["node_hi"]
+        for key in ("node_stats", "refine_stats"):
+            for name, v in res[key].items():
+                want = ref[key][name]
+                for a, b in zip(v if isinstance(v, tuple) else (v,),
+                                want if isinstance(want, tuple) else (want,)):
+                    np.testing.assert_allclose(
+                        a, take_nodes(b, lo, hi, N), rtol=1e-12, atol=1e-13,
+                        err_msg=f"{key}[{name}]")
+
+
+@pytest.mark.parametrize("regime", ["dense", "edgewise", "segment"])
+def test_rank_problems_are_rows_of_the_whole_build(world, regime):
+    """Each rank builds only its nodes; its problems (padded to the widths
+    all ranks agree on) equal its rows of the whole build exactly, before
+    and after with_weights."""
+    for out in world():
+        assert out["build_ranges"][regime] == []
+
+
+def test_sharded_refusals(world):
+    """ValueError for a node count the ranks do not divide and for an
+    unknown halo strategy, on every rank."""
+    for out in world():
+        msgs = out["errors"]
+        assert len(msgs) == 2
+        assert "divisible" in msgs[0] and "halo" in msgs[1]
+
+
+def test_halo_schedule_matches_jax():
+    """build_halo_schedule and _ring_rounds give the JAX package's arrays
+    (60 poses, 6 nodes), and the boundary halos equal the full-gather halos
+    (tests/test_spmd.py::test_halo_schedule_compaction)."""
+    from dpgo_tpu.graph import build_multigraph as jbuild
+    from dpgo_tpu.parallel import spmd as jspmd
+
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.parallel import spmd
+
+    meas, _, _ = random_pose_graph(np.random.default_rng(42), num_poses=60,
+                                   d=3, loop_closures=30)
+    _, _, jmg = jbuild(meas, 6)
+    s = DPGOSolver(_torch_meas(meas), num_nodes=6, device="cpu")
+    js, ts = jspmd.build_halo_schedule(jmg), spmd.build_halo_schedule(s.mg)
+    assert ts.B == js.B and ts.B <= s.mg.n0_max
+    np.testing.assert_array_equal(ts.bnd, js.bnd)
+    np.testing.assert_array_equal(ts.halo_slot, js.halo_slot)
+    assert ts.bnd.dtype == js.bnd.dtype == np.int32
+    for D in (1, 2, 3, 6):
+        assert spmd._ring_rounds(s.mg, D) == jspmd._ring_rounds(jmg, D)
+    st = s.initialize()
+    mg = s.mg
+    th_full = st.Z.t[mg.halo_owner, mg.halo_lpose]
+    tb = st.Z.t[np.arange(mg.num_nodes)[:, None], ts.bnd]
+    th_c = tb[mg.halo_owner, ts.halo_slot]
+    np.testing.assert_array_equal(th_full.numpy(), th_c.numpy())
+
+
+def test_rim_schedule():
+    """rim_synth at 16 nodes: the widest boundary set is 57 poses, and the
+    ring needs 0, 1 and 3 rounds at 1, 2 and 4 ranks."""
+    from dpgo_tpu_torch.graph import build_multigraph
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+    from dpgo_tpu_torch.parallel import spmd
+
+    rim = read_g2o_file(os.path.join(REPO, "artifacts", "rim_synth.g2o"))
+    _, _, mg = build_multigraph(rim, 16)
+    sched = spmd.build_halo_schedule(mg)
+    assert (mg.n0_max, mg.n1_max, sched.B) == (640, 82, 57)
+    assert [spmd._ring_rounds(mg, D) for D in (1, 2, 4)] == [0, 1, 3]
+
+
+def test_take_nodes_states():
+    """take_nodes slices every per-node field of MMState and StarState and
+    keeps the scalar master reference F."""
+    from dpgo_tpu_torch.driver import DPGOSolver, DPGOStarSolver
+    from dpgo_tpu_torch.parallel.spmd import take_nodes
+
+    meas = _graphs()["d3"]
+    for cls in (DPGOSolver, DPGOStarSolver):
+        s = cls(meas, num_nodes=NUM_NODES, device="cpu")
+        st = s.initialize()
+        part = take_nodes(st, 2, 6, NUM_NODES)
+        for f in dataclasses.fields(st):
+            a, b = getattr(st, f.name), getattr(part, f.name)
+            if f.name == "F":
+                assert b is a
+            elif dataclasses.is_dataclass(a):
+                assert torch.equal(b.t, a.t[2:6]) and torch.equal(b.Rh,
+                                                                 a.Rh[2:6])
+            else:
+                assert torch.equal(b, a[2:6]), f.name
+
+
+def test_jax_sharded_star_forced_fallbacks_deadlock(background):
+    """The reference's sharded AMM-PGO* sums the psi-test's squared step
+    over the local shard only (dpgo_tpu/solvers/star.py:164-176 inside
+    shard_map), so at psi = phi = 1e3 the shards of this graph take
+    different master fallbacks in the second step, and the ones inside the
+    fallback's psum wait for the others: XLA reports the stuck all-reduce
+    and ends the process (its collective timeouts shortened here). The
+    port sums the squared step over all ranks
+    (test_sharded_star_matches_jax_and_single)."""
+    proc, logs = background.star, background.logs
+    proc.wait(timeout=240)
+    out, err = (logs / "out").read_text(), (logs / "err").read_text()
+    assert proc.returncode != 0, out
+    assert "step 0 done" in out and "step 1 done" not in out, out
+    assert "may be stuck" in err, err[-2000:]
+
+
+def test_kernel_build_runs_once_under_several_ranks(tmp_path):
+    """Four ranks enter ops/_build.build together (nvcc stubbed out): the
+    file lock lets one compile and link; the others find the fresh
+    library."""
+    from dpgo_tpu_torch.parallel.launch import spawn
+
+    log = str(tmp_path / "nvcc.log")
+    paths = spawn(ranks.build_once, 4, backend="gloo", devices="cpu",
+                  args=(str(tmp_path / "build"), log), deadline=120.0)
+    assert len(set(paths)) == 1 and os.path.exists(paths[0])
+    with open(log) as fh:
+        calls = fh.read().splitlines()
+    from dpgo_tpu_torch.ops import _build
+    n_src = len([s for s in _build.sources() if s.endswith(".cu")])
+    assert len(calls) == n_src + 1, calls  # one compile each, one link
+
+
+def test_torchrun_ranks_join_from_the_environment(background):
+    """torchrun --standalone --nproc-per-node 2: each rank joins through
+    launch.init_from_env (RANK, WORLD_SIZE, LOCAL_RANK) with gloo on the
+    CPU, and both print the single-process solver's 2f history of the graph
+    read back from the .g2o text (rtol 1e-12)."""
+    import json
+
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+
+    trun, logs = background.torchrun, background.logs
+    trun.wait(timeout=240)
+    assert trun.returncode == 0, (logs / "torchrun_err").read_text()
+    recs = [json.loads((logs / f"torchrun.{r}.json").read_text())
+            for r in range(2)]
+    assert [r["rank"] for r in recs] == [0, 1]
+    s = DPGOSolver(read_g2o_file(str(logs / "graph.g2o")), NUM_NODES,
+                   device="cpu")
+    _, _, (f, _) = s.run_steps_history(s.initialize(), 0, TORCHRUN_STEPS)
+    for r in recs:
+        assert (r["world_size"], r["backend"], r["device"]) == (2, "gloo",
+                                                                "cpu")
+        np.testing.assert_allclose(r["f2"], f.numpy(), rtol=1e-12)
