@@ -113,6 +113,26 @@ TNT preset, 16 nodes, float32, 150 iterations:
      (segment path, 4 x 4 nodes, refinement off), 25 steps;
    - nccl4: four ranks over NCCL on four cards, only where the machine has
      them.
+   The polish with the pose axis split over the ranks (each rank its own
+   poses, edges and problems; per CG iteration one halo exchange of the
+   direction and all_reduces of scalars):
+   - polish_rim, in nccl1 and gloo4: a float64 sharded solver on rim_synth
+     (refinement off) from rim's float32 estimate, `polish(outer=10,
+     tcg=300, coarse=True)` as path 8's polish_rim: 2f held within 1e-9 of
+     that path's in the same call and within 1e-8 of RIM_CERTIFIED_2F;
+   - polish_rim100k, in gloo4: `polish(outer=3, tcg=100, coarse=False)` in
+     float32 of the state rim100k_prox's sharded run reaches after its 25
+     steps (4 x 4 nodes, the segment branch of the node-block
+     preconditioner): 2f held not above that state's and within 1e-5
+     relative of the single-process polish of that same state (the ranks'
+     own start rows joined, polished here on rim100k_prox's solver), a
+     segment-Schwarz CG solve on every rank.
+   Each holds 2f equal and finite on every rank, K2 launched on every rank
+   and every rank's problems its own nodes' only, and prints per rank the
+   seconds, outer and CG iterations, host syncs, collectives, bytes and
+   host copies per CG iteration, K2 launches and the peak of
+   torch.cuda.max_memory_allocated during the polish beside the
+   single-process polish's in the same call.
    Every run's 2f history is held to the single-process run's (rim, star,
    rim100k_prox) within 1e-3 at every step; every rank reports the same
    history and master fallbacks and launches K2 (and K1 on rim). Each run
@@ -693,6 +713,31 @@ def loop_stats(syncs) -> dict:
             for name, (n, trips) in syncs.loops.items()}
 
 
+def peak_start(device) -> int:
+    """Wait for the card, restart its peak-memory count; the bytes
+    allocated now."""
+    import torch
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def peak_read(device, start: int) -> dict:
+    """This process's peak of allocated bytes since peak_start, and how
+    far it rose above the bytes allocated then."""
+    import torch
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    return {"peak": peak, "above": peak - start}
+
+
+def problem_bytes(probs) -> int:
+    """Bytes of a NodeProblem's tensors."""
+    import torch
+    return sum(v.numel() * v.element_size() for v in vars(probs).values()
+               if isinstance(v, torch.Tensor))
+
+
 def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
              monotone=False, fused=True, runs=2):
     """Drive one path through the kernels (launch counts reset just before,
@@ -839,7 +884,9 @@ def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
         return st, f2, time.perf_counter() - t0
 
     reset_counts()
+    mem0 = peak_start(dev)
     st, f2, secs = polish(solver)
+    mem = peak_read(dev, mem0)
     launches["polish_rim"] = kernel_counts()
     f, g = (float(x) for x in solver._metrics(st))
     outer, cg = solver.syncs.loops.get("stpcg", [0, 0])
@@ -867,9 +914,13 @@ def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
           f"{f2p:.10f}; relative difference {rel:.3e}")
     check(rel <= 1e-10, f"polish_rim: kernel and plain polish disagree in "
           f"2f by {rel} > 1e-10")
+    print(f"polish_rim [{card}]: peak allocated {mem['peak'] / 2**20:.1f} "
+          f"MiB, {mem['above'] / 2**20:.1f} MiB above the start of the "
+          f"polish; problems {problem_bytes(solver.probs) / 2**20:.1f} MiB")
     paths["polish_rim"] = {
         "seconds": secs, "plain_seconds": secs_p, "outer": outer,
         "cg_iterations": cg, "host_syncs": solver.syncs.count,
+        "memory": mem, "problem_bytes": problem_bytes(solver.probs),
         "f2_start": f0, "grad2_start": g0, "f2": f2, "f2_plain": f2p,
         "grad2": g, "gap_to_certified": gap,
         "launches": launches["polish_rim"], "card": card}
@@ -1391,12 +1442,13 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
     # [102400, 3, 3] in float32.
     solver_p.syncs = HostSyncs()
     reset_counts()
-    torch.cuda.synchronize()
+    mem0 = peak_start(dev)
     t0 = time.perf_counter()
     st, f2 = solver_p.polish(st, outer=POLISH_100K_OUTER,
                              tcg=POLISH_100K_TCG, coarse=False)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    mem = peak_read(dev, mem0)
     launches["polish_rim100k"] = kernel_counts()
     f_ex = float(solver_p._metrics(st)[0])
     loops = loop_stats(solver_p.syncs)
@@ -1404,7 +1456,10 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
           f"{paths['rim100k_prox']['f2_exact']:.2f} -> {f2:.2f} (exact "
           f"{f_ex:.2f}), {solver_p.syncs.count} host syncs, host-driven "
           f"loops [entries, trips per entry] {loops}, launches "
-          f"{launches['polish_rim100k']}")
+          f"{launches['polish_rim100k']}; peak allocated "
+          f"{mem['peak'] / 2**20:.1f} MiB, {mem['above'] / 2**20:.1f} MiB "
+          f"above the start of the polish; problems "
+          f"{problem_bytes(solver_p.probs) / 2**20:.1f} MiB")
     check(np.isfinite(f2) and f2 <= RIM100K_JAX_2F_100, "polish_rim100k: "
           f"2f {f2} not finite or above {RIM100K_JAX_2F_100}")
     check(launches["polish_rim100k"]["polar_so3"] > 0, "polish_rim100k: K2 "
@@ -1413,6 +1468,8 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
           "segment-Schwarz CG solve ran")
     paths["polish_rim100k"] = {"seconds": secs, "f2": f2, "f2_exact": f_ex,
                                "host_syncs": solver_p.syncs.count,
+                               "memory": mem,
+                               "problem_bytes": problem_bytes(solver_p.probs),
                                "loops": loops,
                                "launches": launches["polish_rim100k"],
                                "card": card}
@@ -1486,6 +1543,10 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
 # The sharded phase (module docstring, 10): what each run holds, by name.
 SHARDED_STEPS, SHARDED_HALO_STEPS, SHARDED_STAR_STEPS = 150, 20, 50
 SHARDED_100K_STEPS = 25
+# How far the split float32 polish_rim100k may part from the single-process
+# polish of the same state (relative 2f): the two sum in another order on
+# the card (index_add_ over ranks' shares), so only rounding apart.
+SPLIT_100K_RTOL = 1e-5
 # Collective timeout of the spawned groups (a rank that waits this long for
 # the others raises) and the deadline of a whole spawn.
 SHARDED_TIMEOUT, SHARDED_DEADLINE = 180.0, 900.0
@@ -1497,15 +1558,60 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def sharded_polish(solver, st, kw, device) -> dict:
+    """One sharded polish from `st` (polish keywords `kw`) on this rank:
+    seconds, 2f before and after, the solver's polish_stats (outer and CG
+    iterations, exchanges, collectives, bytes, host copies), host syncs,
+    K2 launches, peak memory, what the rank holds, and its own rows of the
+    start (global frame, on the host) for the parent's single-process
+    polish of the same state."""
+    import numpy as np
+    import torch
+
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    f_start = float(solver._metrics(st)[0])
+    start = tuple(x.cpu().numpy() for x in solver.own_rows(st))
+    solver.syncs = HostSyncs()
+    reset_counts()
+    mem0 = peak_start(device)
+    t0 = time.perf_counter()
+    st2, f2 = solver.polish(st, **kw)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    mem = peak_read(device, mem0)
+    k = kernel_counts()
+    stats = {k_: v for k_, v in solver.polish_stats.items()
+             if k_ != "history"}
+    probs = solver.probs
+    rows = {getattr(probs, f.name).shape[0]
+            for f in dataclasses.fields(probs)
+            if isinstance(getattr(probs, f.name), torch.Tensor)}
+    return {"seconds": secs, "f2_start": f_start, "f2": f2, "start": start,
+            "finite": bool(np.isfinite(f2)
+                           and torch.isfinite(st2.Z.t).all()
+                           and torch.isfinite(st2.Z.R).all()),
+            **stats, "host_syncs": solver.syncs.count,
+            "loops": {n: list(v) for n, v in solver.syncs.loops.items()},
+            "k2": k["polar_so3"] + k["polar_so3_f64"], "memory": mem,
+            "problem_bytes": problem_bytes(probs),
+            "own_problems_only": (rows == {solver.nodes_per_rank}
+                                  and not hasattr(solver, "_full_probs")),
+            "edges": int(solver.pose_split().edges.edges.i.shape[0]),
+            "poses": solver.pose_split().hi - solver.pose_split().lo}
+
+
 def sharded_rank(rank, world_size, device, jobs, card):
     """One rank of the sharded phase: for each job, build the sharded
-    solver on this rank's nodes once, then for each of the job's runs (a
-    halo strategy and a step count, the deterministic ones last) reset the
-    kernel and collective counts, initialize from the job's start, run the
-    steps with history and read the counts. A `timed` run then runs the
-    steps again from the same start without history, timed (as run_slice
-    times the single-process paths); a run with `profile` (at, steps) adds
-    profile_path's window. Returns one record per run."""
+    solver on this rank's nodes once (in the job's type, float32 unless it
+    names another), then for each of the job's runs (a halo strategy and a
+    step count, the deterministic ones last) reset the kernel and
+    collective counts, initialize from the job's start, run the steps with
+    history and read the counts. A run with `polish` (polish keywords) then
+    polishes the state it reached (sharded_polish). A `timed` run then runs
+    the steps again from the same start without history, timed (as
+    run_slice times the single-process paths); a run with `profile` (at,
+    steps) adds profile_path's window. Returns one record per run."""
     import numpy as np
     import torch
 
@@ -1525,7 +1631,8 @@ def sharded_rank(rank, world_size, device, jobs, card):
         opts = MMOptions(accelerated=True,
                          **({} if tnt is None else {"tnt": TNTParams(**tnt)}))
         t0 = time.perf_counter()
-        base = cls(job["meas"], NUM_NODES, opts=opts, dtype=torch.float32,
+        base = cls(job["meas"], NUM_NODES, opts=opts,
+                   dtype=getattr(torch, job.get("dtype", "float32")),
                    device=device)
         _sync(device)
         build_s = time.perf_counter() - t0
@@ -1545,19 +1652,26 @@ def sharded_rank(rank, world_size, device, jobs, card):
             init_s = time.perf_counter() - t0
             reset_counts()
             solver.comm.reset()
+            comm = solver.comm
+            rec = {
+                "key": run["key"], "rank": rank,
+                "nodes": [solver.node_lo, solver.node_hi],
+                "backend": comm.backend, "device": str(device),
+                "build_s": build_s, "init_s": init_s, "steps": steps}
+            if not steps:
+                rec["polish"] = sharded_polish(solver, st, run["polish"],
+                                               device)
+                out.append(rec)
+                del solver, st
+                continue
             syncs0 = solver.syncs.count
             t0 = time.perf_counter()
             st, _, (f, g) = solver.run_steps_history(st, 0, steps)
             _sync(device)
             secs = time.perf_counter() - t0
             launches = kernel_counts()
-            comm = solver.comm
             fh = f.cpu().numpy()
-            rec = {
-                "key": run["key"], "rank": rank,
-                "nodes": [solver.node_lo, solver.node_hi],
-                "backend": comm.backend, "device": str(device),
-                "build_s": build_s, "init_s": init_s, "steps": steps,
+            rec.update({
                 "history_it_s": steps / secs, "it_s": steps / secs,
                 "host_syncs_per_step": (solver.syncs.count - syncs0) / steps,
                 "f2": fh,
@@ -1569,7 +1683,10 @@ def sharded_rank(rank, world_size, device, jobs, card):
                 "host_copies_per_step": comm.host_copies / steps,
                 "k1": launches["stpcg"], "k2": launches["polar_so3"],
                 "fallbacks": dict(getattr(solver, "fallbacks", {})),
-                "deterministic": run["deterministic"], "timed": False}
+                "deterministic": run["deterministic"], "timed": False})
+            if run.get("polish"):
+                rec["polish"] = sharded_polish(solver, st, run["polish"],
+                                               device)
             if run["timed"]:
                 st = solver.initialize(*job["init"])
                 _sync(device)
@@ -1612,21 +1729,32 @@ def _warm_it_s(solver, init, steps):
     return steps / (time.perf_counter() - t0)
 
 
-def sharded_paths(card, rim, rim_init, big, big_init, refs, paths,
-                  launches, rim_solver):
+def sharded_paths(card, rim, rim_init, rim_est, big, big_init, refs, paths,
+                  launches, rim_solver, big_solver):
     """The sharded phase (module docstring, 10). `refs` holds the
     single-process paths it is held to (rim, star, rim100k_prox: their 2f
-    histories, and their it/s printed beside). The host's speed drifts
+    histories, and their it/s printed beside; polish_rim and
+    polish_rim100k: their 2f and peak memory). `rim_est` is the polish's
+    start (rim's float32 estimate). The host's speed drifts
     over a call, so the NCCL runs' it/s are also set beside rim's
     single-process solver (`rim_solver`) timed here just before and just
-    after their spawn. Fills `paths["sharded"]` and one `launches` entry
-    per run, summed over the ranks."""
+    after their spawn. The split polish_rim100k is held to rim100k_prox's
+    single-process solver (`big_solver`) polishing the same 25-step state
+    here (same_state_polish). Fills `paths["sharded"]` and one `launches`
+    entry per run, summed over the ranks."""
     import torch
 
     from dpgo_tpu_torch.parallel.launch import spawn
 
     t_phase = time.perf_counter()
     halos = ["boundary", "boundary", "gather", "ring"]
+    # The split polish of rim (path 8's polish_rim on the ranks).
+    polish_job = dict(meas=rim, init=rim_est, cls="hash", dtype="float64",
+                      tnt={"max_iterations": 0},
+                      runs=[dict(key="polish_rim", halo="boundary", steps=0,
+                                 deterministic=False, timed=False,
+                                 polish=dict(outer=POLISH_OUTER,
+                                             tcg=POLISH_TCG, coarse=True))])
     rim_job = dict(meas=rim, init=rim_init, cls="hash",
                    runs=_runs("rim", ["boundary"], SHARDED_STEPS, timed=True))
     # NCCL at world size 1 also profiles rim's window (its it/s beside the
@@ -1645,12 +1773,15 @@ def sharded_paths(card, rim, rim_init, big, big_init, refs, paths,
              runs=_runs("star", ["boundary"], SHARDED_STAR_STEPS,
                         timed=True)),
         dict(meas=big, init=big_init, cls="hash", tnt={"max_iterations": 0},
-             runs=_runs("rim100k_prox", ["boundary"], SHARDED_100K_STEPS,
-                        timed=True)),
+             runs=[dict(r, polish=dict(outer=POLISH_100K_OUTER,
+                                       tcg=POLISH_100K_TCG, coarse=False))
+                   for r in _runs("rim100k_prox", ["boundary"],
+                                  SHARDED_100K_STEPS, timed=True)]),
+        polish_job,
     ]
     # The deterministic runs go last: the setting stays on in the process.
     jobs4 = jobs4[1:] + jobs4[:1]
-    runs = [("nccl1", "nccl", ["cuda:0"], [rim_profiled]),
+    runs = [("nccl1", "nccl", ["cuda:0"], [rim_profiled, polish_job]),
             ("gloo4", "gloo", ["cuda:0"] * 4, jobs4)]
     if torch.cuda.device_count() >= 4:
         runs.append(("nccl4", "nccl", [f"cuda:{r}" for r in range(4)],
@@ -1690,21 +1821,61 @@ def sharded_paths(card, rim, rim_init, big, big_init, refs, paths,
         for i, rec in enumerate(res[0]):
             key = rec["key"]
             mine = [rank_recs[i] for rank_recs in res]
-            out[name]["runs"][key] = _sharded_record(
-                f"sharded {name} {key}", mine, refs, card)
-            launches[f"sharded_{name}_{key}"] = {
-                "polar_so3": sum(r["k2"] for r in mine), "polar_so3_f64": 0,
-                "stpcg": sum(r["k1"] for r in mine), "stpcg_d2": 0}
+            if rec["steps"]:
+                out[name]["runs"][key] = _sharded_record(
+                    f"sharded {name} {key}", mine, refs, card)
+                launches[f"sharded_{name}_{key}"] = {
+                    "polar_so3": sum(r["k2"] for r in mine),
+                    "polar_so3_f64": 0,
+                    "stpcg": sum(r["k1"] for r in mine), "stpcg_d2": 0}
+            if "polish" in rec:
+                pkey = "polish_rim" if key == "polish_rim" \
+                    else "polish_rim100k"
+                recs = [r["polish"] for r in mine]
+                same = (None if pkey == "polish_rim" else same_state_polish(
+                    big_solver, recs, run_kw(jobs, key)))
+                out[name]["runs"][pkey] = _sharded_polish_record(
+                    f"sharded {name} {pkey}", pkey, recs, refs, card, same)
+                f64 = pkey == "polish_rim"
+                launches[f"sharded_{name}_{pkey}"] = {
+                    "polar_so3": 0 if f64 else sum(r["k2"] for r in recs),
+                    "polar_so3_f64": sum(r["k2"] for r in recs) if f64
+                    else 0, "stpcg": 0, "stpcg_d2": 0}
         for job in ("halos", "halos_deterministic"):
             if f"{job}_gather" in out[name]["runs"]:
                 _same_as_one_strategy(f"sharded {name} {job}",
                                       out[name]["runs"], job,
                                       hold=job == "halos_deterministic")
         for run in out[name]["runs"].values():
-            run.pop("f2")
+            run.pop("f2", None)
     paths["sharded"] = dict(out, seconds=time.perf_counter() - t_phase,
                             card=card)
     print(f"sharded: phase {paths['sharded']['seconds']:.1f} s [{card}]")
+
+
+def run_kw(jobs, key):
+    """The polish keywords of the run `key` among `jobs`."""
+    return next(r["polish"] for job in jobs for r in job["runs"]
+                if r["key"] == key)
+
+
+def same_state_polish(solver, recs, kw) -> dict:
+    """The single-process polish (keywords `kw`) on `solver` of the state
+    the ranks of a split polish started from: their own rows (`recs`, in
+    rank order, each rank's poses contiguous) joined. Returns its 2f
+    before and after and its seconds; its launches count nowhere."""
+    import numpy as np
+
+    t = np.concatenate([r["start"][0] for r in recs])
+    R = np.concatenate([r["start"][1] for r in recs])
+    st = solver.initialize(t, R)
+    f_start = float(solver._metrics(st)[0])
+    _sync(solver.device)
+    t0 = time.perf_counter()
+    _, f2 = solver.polish(st, **kw)
+    _sync(solver.device)
+    return {"f2_start": f_start, "f2": f2,
+            "seconds": time.perf_counter() - t0}
 
 
 def _sharded_record(label, mine, refs, card):
@@ -1764,6 +1935,85 @@ def _sharded_record(label, mine, refs, card):
             "init_s": [r["init_s"] for r in mine],
             "fallbacks": r0["fallbacks"], "backend": r0["backend"],
             "deterministic": r0["deterministic"], "f2": f.tolist()}
+
+
+def _sharded_polish_record(label, key, recs, refs, card, same=None):
+    """Check and print one split polish (one record per rank): 2f equal and
+    finite on every rank, K2 launched on every rank, every rank's problems
+    its own nodes' only; polish_rim: 2f within 1e-9 of the single-process
+    polish_rim's in this call and within 1e-8 of RIM_CERTIFIED_2F;
+    polish_rim100k: 2f not above the start's, within SPLIT_100K_RTOL of
+    the single-process polish of the same state (`same`), and a
+    segment-Schwarz CG solve on every rank. Prints per rank the seconds,
+    iterations, host syncs, traffic per CG iteration, K2 launches and peak
+    memory beside the single-process polish's."""
+    r0 = recs[0]
+    for r in recs:
+        check(r["finite"], f"{label}: non-finite on a rank")
+        check(r["f2"] == r0["f2"], f"{label}: 2f differs between ranks: "
+              f"{[q['f2'] for q in recs]}")
+        check(r["k2"] > 0, f"{label}: a rank launched no K2: "
+              f"{[q['k2'] for q in recs]}")
+        check(r["own_problems_only"], f"{label}: a rank holds problems of "
+              "nodes not its own")
+    single = refs[key]
+    rel = r0["f2"] / single["f2"] - 1.0
+    if key == "polish_rim":
+        gap = r0["f2"] / RIM_CERTIFIED_2F - 1.0
+        check(abs(rel) <= 1e-9, f"{label}: 2f {r0['f2']} parts from the "
+              f"single-process polish's {single['f2']} by {rel}")
+        check(abs(gap) <= 1e-8, f"{label}: 2f {r0['f2']} not within 1e-8 "
+              f"of the certified {RIM_CERTIFIED_2F}")
+        quality = (f"{gap:.3e} relative to the certified "
+                   f"{RIM_CERTIFIED_2F}")
+    else:
+        check(r0["f2"] <= r0["f2_start"], f"{label}: 2f rose from "
+              f"{r0['f2_start']} to {r0['f2']}")
+        check(all(r["loops"].get("seg_cg", [0])[0] > 0 for r in recs),
+              f"{label}: a rank ran no segment-Schwarz CG solve")
+        rel_same = r0["f2"] / same["f2"] - 1.0
+        check(abs(rel_same) <= SPLIT_100K_RTOL, f"{label}: 2f {r0['f2']} "
+              f"parts from the single-process polish of the same state "
+              f"({same['f2']}) by {rel_same}")
+        quality = (f"from {r0['f2_start']:.4f}; the single-process polish "
+                   f"of the same state {same['f2_start']:.4f} -> "
+                   f"{same['f2']:.4f} in {same['seconds']:.2f} s, relative "
+                   f"{rel_same:.3e}")
+    ref_name = ("single-process" if key == "polish_rim" else
+                "the single process's polish of its 100-step state")
+    cg = max(r0["cg_iterations"], 1)
+    mib = 2.0 ** 20
+    print(f"{label} [{card}]: 2f {r0['f2']:.10f} ({quality}; "
+          f"{ref_name} {single['f2']:.10f}, relative {rel:.3e}); "
+          f"{r0['outer']} outer, {r0['cg_iterations']} CG iterations; per "
+          f"CG iteration {r0['exchanges'] / cg:.3f} exchanges, "
+          f"{r0['collectives'] / cg:.3f} collectives, "
+          f"{r0['bytes'] / cg:.0f} B, {r0['host_copies'] / cg:.3f} host "
+          "copies per rank")
+    for r in recs:
+        print(f"{label} rank: {r['seconds']:.2f} s, {r['host_syncs']} host "
+              f"syncs, K2 {r['k2']}, {r['poses']} poses, {r['edges']} "
+              f"edges, problems {r['problem_bytes'] / mib:.1f} MiB "
+              f"(single process {single['problem_bytes'] / mib:.1f}), "
+              f"peak allocated {r['memory']['peak'] / mib:.1f} MiB, "
+              f"{r['memory']['above'] / mib:.1f} above the polish's start "
+              f"(single process {single['memory']['peak'] / mib:.1f}, "
+              f"{single['memory']['above'] / mib:.1f}); seg_cg "
+              f"{r['loops'].get('seg_cg')}")
+    return {"f2": r0["f2"], "f2_start": r0["f2_start"], "rel_to_single": rel,
+            "same_state": same,
+            "outer": r0["outer"], "cg_iterations": r0["cg_iterations"],
+            "exchanges": r0["exchanges"], "collectives": r0["collectives"],
+            "bytes": r0["bytes"], "host_copies": r0["host_copies"],
+            "seconds": [r["seconds"] for r in recs],
+            "host_syncs": [r["host_syncs"] for r in recs],
+            "k2_per_rank": [r["k2"] for r in recs],
+            "memory": [r["memory"] for r in recs],
+            "problem_bytes": [r["problem_bytes"] for r in recs],
+            "single_memory": single["memory"],
+            "single_problem_bytes": single["problem_bytes"],
+            "poses": [r["poses"] for r in recs],
+            "edges": [r["edges"] for r in recs]}
 
 
 def _same_as_one_strategy(label, runs, job, hold):
@@ -2116,17 +2366,20 @@ def main() -> int:
         at, steps = windows.get(name, (PROFILE_AT, PROFILE_STEPS))
         paths[name]["profile"] = profile_path(name, solver, init, card, at,
                                               steps)
-    # rim's solver stays for the sharded phase's timings.
+    # rim's solver stays for the sharded phase's timings, rim100k_prox's for
+    # its polish of the split polish's start.
     rim_solver = to_profile[0][1]
+    big_solver = next(s for n, s, _ in to_profile if n == "rim100k_prox")
     del to_profile, solver
     paths["mm_dchordal"]["dchordal_profile"] = profile_dchordal(rim, dev,
                                                                 card)
 
     # Path 10: the sharded solvers, held to the single-process histories.
-    refs = {name: paths[name] for name in ("rim", "star", "rim100k_prox")}
-    sharded_paths(card, rim, rim_init, big, big_init, refs, paths, launches,
-                  rim_solver)
-    del rim_solver
+    refs = {name: paths[name] for name in ("rim", "star", "rim100k_prox",
+                                           "polish_rim", "polish_rim100k")}
+    sharded_paths(card, rim, rim_init, rim_est, big, big_init, refs, paths,
+                  launches, rim_solver, big_solver)
+    del rim_solver, big_solver
 
     def total(kern):
         return sum(c[kern] for c in launches.values())

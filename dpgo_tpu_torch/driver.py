@@ -18,7 +18,8 @@ from dpgo_tpu_torch.graph import build_multigraph
 from dpgo_tpu_torch.io.g2o import Measurements
 from dpgo_tpu_torch.losses import Loss
 from dpgo_tpu_torch.manifold import proj_tangent
-from dpgo_tpu_torch.objective import EdgeData, evaluate_f, grad_norm
+from dpgo_tpu_torch.objective import (EdgeData, SplitEdges, evaluate_f,
+                                      grad_norm)
 from dpgo_tpu_torch.problem import NodeProblem, NodeState, build_node_problems
 from dpgo_tpu_torch.sesync import (chordal_initialization,
                                    recover_translations_global)
@@ -26,6 +27,7 @@ from dpgo_tpu_torch.solvers import mm as mm_mod
 from dpgo_tpu_torch.solvers import polish as polish_mod
 from dpgo_tpu_torch.solvers import star as star_mod
 from dpgo_tpu_torch.solvers.mm import MMOptions, MMState, init_state
+from dpgo_tpu_torch.solvers.tnt import tnt_one
 from dpgo_tpu_torch.utils import HostSyncs, resolve_device
 
 
@@ -96,6 +98,8 @@ class DPGOSolver:
         self.halo_dc = None
         # Device-to-host flag reads of the iterate (see HostSyncs).
         self.syncs = HostSyncs()
+        # Outer / CG iterations and TNT history of the last polish.
+        self.polish_stats = None
         # (scale_w, problems) of the last update: under dynamic rescale the
         # update builds the reweighted problems once per step and the next
         # iterate runs on them.
@@ -122,11 +126,6 @@ class DPGOSolver:
     def _agree(self, flag: bool) -> bool:
         """The flag every process takes (the first process's)."""
         return flag
-
-    def _polish_problems(self) -> NodeProblem:
-        """The problems of every node, which the polish preconditions
-        with."""
-        return self.probs
 
     # ----------------------------------------------------------- init
 
@@ -287,22 +286,20 @@ class DPGOSolver:
                 and tnt.max_iterations > 0
                 and tnt.max_iterations_accepted > 0)
 
-    def _node_block_precondition(self, probs: NodeProblem):
+    def _node_block_precondition(self, share: SplitEdges):
         """Node-block preconditioner for the global polish: per node, the
         exact mG00 solve for translations (split inverse, or segment-Schwarz
         CG on the segment path) and for rotations the dense regularized
         mG11 inverse (dense path), its segment-dense analog (segment path)
         or the block-Jacobi blocks (edge-wise path). Block-diagonal over
         nodes, so SPD; it collapses intra-node conditioning exactly and
-        leaves CG only the inter-node coupling."""
-        mg = self.mg
-        P = self.meas.num_poses
-        gidx = torch.as_tensor(np.minimum(
-            np.asarray(mg.start)[:, None] + np.arange(mg.n0_max)[None, :],
-            P - 1), device=self.device)
-        mask = torch.as_tensor(np.arange(mg.n0_max)[None, :]
-                               < np.asarray(mg.n0)[:, None],
-                               device=self.device)
+        leaves CG only the inter-node coupling.
+
+        It acts on the own rows of `share` (the poses of a range of nodes),
+        with this solver's problems, which are those nodes'."""
+        probs = self.probs
+        gidx, mask = share.node_rows, share.node_mask
+        node_of, local_of = share.row_node, share.row_pose
 
         def precondition(x, v):
             vt, vR = v
@@ -316,15 +313,15 @@ class DPGOSolver:
                 Rp = Rn @ probs.precon_inv
             tp = probs.solve_mG00(tn, t_anchor=torch.zeros_like(tn),
                                   syncs=self.syncs)
-            out_t = tp[self.node_of, self.local_of]
-            out_R = Rp[self.node_of, self.local_of]
+            out_t = tp[node_of, local_of]
+            out_R = Rp[node_of, local_of]
             return out_t, proj_tangent(x[1], out_R)
 
         return precondition
 
     def polish(self, st: MMState, outer: int = 20, tcg: int = 500,
                node_precon: bool = True, coarse: bool = False,
-               coarse_segments: tuple = ()):
+               coarse_segments: tuple = (), params=None):
         """Global second-order tail polish: gather the full pose state, run
         Riemannian TNT on the coupled problem (solvers/polish.py) on this
         solver's device and type, and re-initialize the solver at the
@@ -336,7 +333,12 @@ class DPGOSolver:
         rigid levels on top (the additive multilevel hierarchy; see
         polish.multilevel_rigid_preconditioner) and implies the coarse
         path, which needs the node preconditioner as its base level. The
-        retraction's SO(3) projection follows `self.probs.kernels` (K2)."""
+        retraction's SO(3) projection follows `self.probs.kernels` (K2).
+        `params` (TNTParams) replaces polish_params(outer, tcg).
+        `polish_stats` then holds the run's outer and CG iterations and its
+        TNT history."""
+        if params is None:
+            params = polish_mod.polish_params(outer=outer, tcg=tcg)
         coarse_segments = tuple(coarse_segments)
         if coarse_segments and not coarse:
             coarse = True  # segments imply the multilevel hierarchy
@@ -345,34 +347,71 @@ class DPGOSolver:
                 "polish(coarse=True / coarse_segments=...) needs the "
                 "node-block preconditioner as the hierarchy's base level; "
                 "pass node_precon=True")
-        params = polish_mod.polish_params(outer=outer, tcg=tcg)
-        kernels = self.probs.kernels
-        t, R = self._place_global(*self.gather_global(st))
-        precon = (self._node_block_precondition(self._polish_problems())
-                  if node_precon else None)
-        if coarse and precon is not None:
-            model0 = polish_mod.global_tnt_model(
-                self.edges, self.loss, self.loss_reg, num_poses=t.shape[0],
-                precondition=precon, kernels=kernels)
-            _, nabla = model0.grad_and_nabla((t, R))
-            P = t.shape[0]
-            levels = [(self.node_of, self.num_nodes)]
-            levels += [(polish_mod.contiguous_segments(P, m, self.device), m)
-                       for m in coarse_segments if m < P]
-            precon = polish_mod.multilevel_rigid_preconditioner(
-                model0.hess_vp, nabla, (t, R), levels, precon)
-        t2, R2, fx = polish_mod.polish_global(
-            self.edges, t, R, loss=self.loss, loss_reg=self.loss_reg,
-            params=params, precondition=precon, kernels=kernels,
-            syncs=self.syncs)
+        t2, R2, fx, stats = self._polish_tnt(st, params, node_precon, coarse,
+                                             coarse_segments)
+        self.polish_stats = stats
         st2 = self.initialize(t2.cpu().numpy(), R2.cpu().numpy())
         return st2, 2.0 * float(fx)
 
-    def _place_global(self, t, R):
-        """Placement hook for the gathered global pose state before the
-        polish (a sharded solver would shard the pose axis here; this one
-        keeps it on its device)."""
-        return t, R
+    def _polish_tnt(self, st: MMState, params, node_precon: bool,
+                    coarse: bool, coarse_segments: tuple):
+        """The polish's TNT on the whole gathered pose state: the split
+        model (polish.split_tnt_model) with one share holding every pose.
+        Returns the global (t, R), f and the stats (the sharded solvers
+        split the pose axis here)."""
+        t, R = self.gather_global(st)
+        share = SplitEdges.build(self.edges, self.part.node_of, 0,
+                                 self.num_nodes)
+        return self._run_polish_tnt(share, (t, R), params, node_precon,
+                                    coarse, coarse_segments)
+
+    def _run_polish_tnt(self, share: SplitEdges, x0, params,
+                        node_precon: bool, coarse: bool,
+                        coarse_segments: tuple, exchange=None, reduce=None):
+        """TNT from x0, the own rows of `share` (a range of nodes), on the
+        split model with the node-block preconditioner on this solver's
+        problems and the rigid coarse levels; `exchange` and `reduce` as in
+        split_tnt_model (None: one process). Returns (t, R, f, stats)."""
+        def make_model(precondition):
+            return polish_mod.split_tnt_model(
+                share, exchange, reduce, self.loss, self.loss_reg,
+                precondition, self.probs.kernels)
+
+        precon = (self._node_block_precondition(share) if node_precon
+                  else None)
+        if coarse:
+            model0 = make_model(precon)
+            _, nabla = model0.grad_and_nabla(x0)
+            P = self.meas.num_poses
+            p0 = int(self.mg.start[share.node_lo])
+            rows = slice(p0, p0 + share.num_own)
+            node_of = self.part.node_of
+
+            def dev(x):
+                return torch.as_tensor(x, device=self.device)
+
+            levels = [(dev(node_of[rows]), self.num_nodes)]
+            for m in coarse_segments:
+                if m >= P:
+                    continue
+                seg = polish_mod.contiguous_segments(P, m).numpy()
+                # Pieces: the segments cut at the node boundaries.
+                cut = np.r_[True, (seg[1:] != seg[:-1])
+                            | (node_of[1:] != node_of[:-1])]
+                piece = np.cumsum(cut) - 1
+                levels.append((dev(seg[rows]), m,
+                               (dev(piece[rows]), dev(seg[cut]))))
+            precon = polish_mod.multilevel_rigid_preconditioner(
+                model0.hess_vp, nabla, x0, levels, precon, reduce=reduce)
+        x, fx, _, _, hist = tnt_one(make_model(precon), x0, params,
+                                    syncs=self.syncs, record=True)
+        n = int(hist.count)
+        stats = {"outer": n,
+                 "cg_iterations": int(hist.inner_iterations[:n].sum()),
+                 "history": {k: getattr(hist, k)[:n].cpu().numpy()
+                             for k in ("fx", "Delta", "inner_iterations",
+                                       "rho", "accepted")}}
+        return x[0], x[1], fx, stats
 
     def refine_stats(self, st: MMState) -> dict:
         """Per-node, per-TNT-outer-iteration refinement profile for the

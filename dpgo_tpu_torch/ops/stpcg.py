@@ -41,6 +41,15 @@ def ip(a, b) -> torch.Tensor:
     return (a * b).reshape(a.shape[0], -1).sum(1)
 
 
+def ips(pairs) -> tuple:
+    """Per-lane inner products of several (a, b) pairs: the default of the
+    `inner` hook that TNT and `stpcg_loop` take every inner product and
+    norm over the variable through. A model whose variable is split over
+    processes passes a hook that sums each local product over them, all of
+    one call's scalars in one collective."""
+    return tuple(ip(a, b) for a, b in pairs)
+
+
 def sel(pred: torch.Tensor, a, b):
     """Per lane: a where pred [N], else b (tensors or tuples of them)."""
     if isinstance(a, tuple):
@@ -66,23 +75,25 @@ def _zeros_like(x):
 
 
 def stpcg_target(g: torch.Tensor, v0: torch.Tensor, kappa_fgr: float,
-                 theta: float) -> torch.Tensor:
+                 theta: float, inner: Callable = ips) -> torch.Tensor:
     """Forcing target r0 min(kappa, r0^theta), r0 = sqrt(<g, P g>)."""
-    r0_norm = torch.sqrt(ip(g, v0))
+    r0_norm = torch.sqrt(inner(((g, v0),))[0])
     return r0_norm * torch.clamp(r0_norm ** theta, max=kappa_fgr)
 
 
 def stpcg_loop(grad, hess_vp: Callable, precon: Callable,
                v0, Delta: torch.Tensor, target: torch.Tensor,
                active: torch.Tensor | None, max_iters: int,
-               syncs: HostSyncs | None = None):
+               syncs: HostSyncs | None = None, inner: Callable = ips):
     """Batched STPCG from r = grad, v = v0 = precon(grad); tangents are
-    [N, ...] tensors or tuples of them.
+    [N, ...] tensors or tuples of them. `inner` takes every inner product
+    (`ips`): per iteration one call after the Hessian product and one
+    after the preconditioner.
 
     Returns (step, H step, step M-norm, iterations) per lane."""
     syncs = syncs or HostSyncs()
     eps = 1e-8
-    r0v0 = ip(grad, v0)
+    (r0v0,) = inner(((grad, v0),))
     r0_norm = torch.sqrt(r0v0)
     Delta2 = Delta * Delta
 
@@ -105,9 +116,10 @@ def stpcg_loop(grad, hess_vp: Callable, precon: Callable,
             break
         trips += 1
         Hp = hess_vp(p)
-        kappa_k = ip(p, Hp)
-        p_norm = torch.sqrt(ip(p, p))
-        Hp_norm = torch.sqrt(ip(Hp, Hp))
+        kappa_k, pp, HpHp, pr, rv = inner(((p, Hp), (p, p), (Hp, Hp),
+                                           (p, r), (r, v)))
+        p_norm = torch.sqrt(pp)
+        Hp_norm = torch.sqrt(HpHp)
         in_kernel = Hp_norm < eps * p_norm
 
         def sigma_of(smp):
@@ -115,12 +127,11 @@ def stpcg_loop(grad, hess_vp: Callable, precon: Callable,
             return (-smp + torch.sqrt(torch.clamp(disc, min=0.0))) / pk_M_2
 
         # Kernel exit: follow p (sign-fixed to descent) to the boundary.
-        p_desc = torch.where(ip(p, r) < 0, -1.0, 1.0).to(r0v0.dtype)
+        p_desc = torch.where(pr < 0, -1.0, 1.0).to(r0v0.dtype)
         sig_k = sigma_of(sk_M_pk * p_desc) * p_desc
         s_kernel = axpy(sig_k, p, s)
         Hs_kernel = axpy(sig_k, Hp, Hs)
 
-        rv = ip(r, v)
         alpha = rv / kappa_k
         sk1_M_2 = sk_M_2 + 2 * alpha * sk_M_pk + alpha * alpha * pk_M_2
         bad = (kappa_k <= 0) | (sk1_M_2 > Delta2)
@@ -133,7 +144,7 @@ def stpcg_loop(grad, hess_vp: Callable, precon: Callable,
         Hs_new = axpy(alpha, Hp, Hs)
         r_new = axpy(alpha, Hp, r)
         v_new = precon(r_new)
-        rv_new = ip(r_new, v_new)
+        (rv_new,) = inner(((r_new, v_new),))
         beta = rv_new / (alpha * kappa_k)
         sk_M_pk_new = beta * (sk_M_pk + alpha * pk_M_2)
         pk_M_2_new = rv_new + beta * beta * pk_M_2

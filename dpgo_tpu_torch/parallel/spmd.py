@@ -29,6 +29,12 @@ per node and runs no collective.
 Under gloo on a CUDA card (several ranks sharing one card) every buffer is
 copied to the host before a collective and back after it; the copies are
 counted (`Collectives.host_copies`).
+
+The polish splits the pose axis the same way (`PoseSplit`): a rank holds
+the poses of its nodes and the edges touching them, fills the halo rows
+those edges read through the same exchange, and runs the global TNT on its
+rows with every inner product, objective share and coarse-level sum
+all-reduced, so every rank takes the same trust-region and CG branches.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch.distributed as dist
 
 from dpgo_tpu_torch.driver import DPGOSolver, DPGOStarSolver
 from dpgo_tpu_torch.graph import MultiGraph
+from dpgo_tpu_torch.objective import SplitEdges
 from dpgo_tpu_torch.problem import NodeState
 
 HALO_STRATEGIES = ("gather", "boundary", "ring")
@@ -216,8 +223,17 @@ def _halo_exchange(comm: Collectives, t_own, R_own, owner_l, slot_l, bnd_l,
     `dc_l` [npd, n1_max, d] re-expresses the owner's locally-centered
     translations in the reader's frame (local gauge centering,
     DPGOSolver.set_gauge)."""
-    d = t_own.shape[-1]
-    x = _pack(t_own, R_own)                             # [npd, n0, k]
+    h = _exchange_packed(comm, _pack(t_own, R_own), owner_l, slot_l, bnd_l,
+                         halo, ring_rounds)
+    th, Rh = _unpack(h, t_own.shape[-1])
+    return (th if dc_l is None else th + dc_l), Rh
+
+
+def _exchange_packed(comm: Collectives, x, owner_l, slot_l, bnd_l,
+                     halo: str, ring_rounds: int):
+    """The halo rows [npd, n1_max, k] of this rank's nodes from every
+    node's own rows x [npd, n0_max, k] (any k values per pose), by the
+    strategy `halo`; the arguments as in `_halo_exchange`."""
     if halo == "gather":
         h = comm.all_gather(x)[owner_l, slot_l[1]]
     else:
@@ -237,8 +253,55 @@ def _halo_exchange(comm: Collectives, t_own, R_own, owner_l, slot_l, bnd_l,
                 h = torch.where(take[..., None], buf[owner_loc, slot], h)
                 if r < ring_rounds:
                     buf = comm.ring_shift(buf)
-    th, Rh = _unpack(h, d)
-    return (th if dc_l is None else th + dc_l), Rh
+    return h
+
+
+@dataclasses.dataclass
+class PoseSplit:
+    """This rank's share of the pose axis in the sharded polish.
+
+    The rank owns poses [lo, hi): those of its nodes, which are contiguous.
+    Its halo rows are the other ranks' poses its edges read, the off-rank
+    entries of its nodes' halo tables (each pose once, by global id), so the
+    node halo exchange fills them: the own rows are laid out in node blocks
+    (`edges.node_rows`), exchanged, and the entries `halo_pick` of the
+    flattened [npd * n1_max] result are kept."""
+
+    lo: int
+    hi: int
+    halo_pick: torch.Tensor     # [H]
+    halo: np.ndarray            # [H] global pose ids
+    edges: SplitEdges
+    counts: list                # poses per rank
+
+    @staticmethod
+    def build(solver: "_Sharded") -> "PoseSplit":
+        mg = solver.mg
+        a, b = solver.node_lo, solver.node_hi
+        start, n0 = np.asarray(mg.start), np.asarray(mg.n0)
+
+        def end(node):
+            return int(start[node] + n0[node])
+
+        lo, hi = int(start[a]), end(b - 1)
+        npd = solver.nodes_per_rank
+        counts = [end((r + 1) * npd - 1) - int(start[r * npd])
+                  for r in range(solver.num_ranks)]
+        owner = np.asarray(mg.halo_owner)[a:b]
+        off = (np.asarray(mg.halo_mask)[a:b] & ((owner < a) | (owner >= b)))
+        gid = (start[owner] + np.asarray(mg.halo_lpose)[a:b]).reshape(-1)
+        flat = np.flatnonzero(off.reshape(-1))
+        halo, first = np.unique(gid[flat], return_index=True)
+
+        def ix(x):
+            return torch.as_tensor(np.asarray(x, np.int64),
+                                   device=solver.device)
+
+        return PoseSplit(
+            lo=lo, hi=hi, halo_pick=ix(flat[first]), halo=halo,
+            edges=SplitEdges.build(solver.edges, solver.part.node_of, a, b,
+                                   halo),
+            counts=counts)
 
 
 class _Sharded:
@@ -269,7 +332,8 @@ class _Sharded:
         self.node_lo = rank * self.nodes_per_rank
         self.node_hi = self.node_lo + self.nodes_per_rank
         self._group = group
-        self._full_probs = None
+        self._split = None
+        self.row_exchanges = 0
         super().__init__(meas, num_nodes, *args, **kw)
         sched = build_halo_schedule(self.mg)
         self.halo_sched = sched
@@ -317,14 +381,6 @@ class _Sharded:
                 pad[n] = out
         return dataclasses.replace(probs, **pad) if pad else probs
 
-    def _polish_problems(self):
-        """The polish preconditions with every node's blocks, so each rank
-        builds the whole problem set (once, at the first polish)."""
-        if self._full_probs is None:
-            self._full_probs = DPGOSolver._build_problems(self)
-        return dataclasses.replace(self._full_probs,
-                                   kernels=self.probs.kernels)
-
     def set_gauge(self, c: np.ndarray) -> None:
         super().set_gauge(c)
         self.halo_dc = self._mine(self.halo_dc)
@@ -345,6 +401,72 @@ class _Sharded:
 
     def _agree(self, flag: bool) -> bool:
         return self.comm.broadcast_flag(flag)
+
+    def pose_split(self) -> PoseSplit:
+        """This rank's share of the pose axis (built at the first polish)."""
+        if self._split is None:
+            self._split = PoseSplit.build(self)
+        return self._split
+
+    def exchange_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """The halo rows [H, k] of this rank's pose share from every rank's
+        own rows [P_r, k] (k values per pose: a point or directions, packed
+        by polish.with_halo), by the solver's halo strategy. No gauge
+        offset is added: the polish works in the global frame, and a
+        direction has no gauge. Counted in `row_exchanges`."""
+        sp = self.pose_split()
+        self.row_exchanges += 1
+        h = _exchange_packed(self.comm, rows[sp.edges.node_rows],
+                             self.halo_owner,
+                             (self.halo_slot, self.halo_lpose), self.bnd,
+                             self.halo, self.ring_rounds)
+        return h.reshape(-1, h.shape[-1])[sp.halo_pick]
+
+    def own_rows(self, st):
+        """This rank's own poses (t [P_r, d], R [P_r, d, d]) of `st` in the
+        global frame, in pose order: its rows of gather_global, with no
+        collective."""
+        sp = self.pose_split()
+        rows = (sp.edges.row_node, sp.edges.row_pose)
+        t = st.Z.t[rows]
+        if self._c is not None:
+            c = torch.as_tensor(self._c[self.part.node_of[sp.lo:sp.hi]],
+                                dtype=self.dtype, device=self.device)
+            t = t + c
+        return t, st.Z.R[rows]
+
+    def _polish_tnt(self, st, params, node_precon: bool, coarse: bool,
+                    coarse_segments: tuple):
+        """The polish's TNT with the pose axis split over the ranks: each
+        rank starts from its own rows (in the global frame) and runs the
+        split model (solvers/polish.py, split_tnt_model) with the
+        node-block preconditioner of its own problems and the coarse levels'
+        sums over the ranks; one all_gather of the rows at the end. Every
+        branch of TNT and STPCG reads all-reduced values, so the ranks run
+        the same collectives. The stats add this rank's exchanges,
+        collectives, bytes and host copies up to that all_gather."""
+        sp = self.pose_split()
+        comm = self.comm
+        calls0, bytes0, copies0 = comm.calls, comm.bytes, comm.host_copies
+        exchanges0 = self.row_exchanges
+        t2, R2, fx, stats = self._run_polish_tnt(
+            sp.edges, self.own_rows(st), params, node_precon, coarse,
+            coarse_segments, exchange=self.exchange_rows,
+            reduce=comm.all_reduce)
+        stats.update(exchanges=self.row_exchanges - exchanges0,
+                     collectives=comm.calls - calls0,
+                     bytes=comm.bytes - bytes0,
+                     host_copies=comm.host_copies - copies0)
+        # Every rank's rows, padded to the widest rank, in rank order.
+        d = self.mg.d
+        buf = t2.new_zeros(max(sp.counts), d + d * d)
+        buf[:sp.hi - sp.lo] = _pack(t2, R2)
+        rows = comm.all_gather(buf)
+        keep = np.concatenate([r * buf.shape[0] + np.arange(n)
+                               for r, n in enumerate(sp.counts)])
+        t_all, R_all = _unpack(rows[torch.as_tensor(keep,
+                                                    device=rows.device)], d)
+        return t_all, R_all, fx, stats
 
     def gather_global(self, st):
         """The global (t, R) on every rank: one all_gather of the own
@@ -368,9 +490,19 @@ class ShardedDPGOSolver(_Sharded, DPGOSolver):
                           loss=Loss.TRIVIAL, loss_reg=1.0, halo="boundary",
                           dtype=torch.float64, device=None, ...)
 
-    `run`'s callback decides on rank 0 (its stop flag is broadcast), and
-    `polish` runs the global polish on every rank (the pose axis is not
-    split) before each rank takes its nodes of the result."""
+    `run`'s callback decides on rank 0 (its stop flag is broadcast).
+
+    `polish` splits the pose axis too: each rank holds its own poses, the
+    edges that touch them and its nodes' problems, and runs the global TNT
+    on its rows (`_polish_tnt`). Per CG iteration a rank makes one halo
+    exchange of the search direction (the halo rows its edges read) and
+    all_reduces of scalars: the five inner products after the Hessian
+    product in one, the preconditioned residual's in another, and with
+    the coarse levels their restrictions in a third. The result is
+    gathered once and the solver re-initialized at it, the same
+    (state, 2f) on every rank; `polish_stats` counts the polish's
+    exchanges, collectives, bytes and host copies beside its CG
+    iterations."""
 
 
 class ShardedDPGOStarSolver(_Sharded, DPGOStarSolver):
@@ -387,5 +519,5 @@ class ShardedDPGOStarSolver(_Sharded, DPGOStarSolver):
 
 
 __all__ = ["HaloSchedule", "build_halo_schedule", "_ring_rounds",
-           "_halo_exchange", "take_nodes", "Collectives",
+           "_halo_exchange", "take_nodes", "Collectives", "PoseSplit",
            "ShardedDPGOSolver", "ShardedDPGOStarSolver"]

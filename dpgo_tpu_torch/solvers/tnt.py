@@ -28,7 +28,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from dpgo_tpu_torch.ops.stpcg import ip, sel, stpcg_loop, stpcg_target
+from dpgo_tpu_torch.ops.stpcg import ips, sel, stpcg_loop, stpcg_target
 from dpgo_tpu_torch.utils import HostSyncs
 
 
@@ -73,6 +73,11 @@ class TNTModel(NamedTuple):
     precon_spans_full_space: False when `precondition` omits part of the
         tangent space; it turns the noise-floor gate off, whose estimate
         1/2 g^T P g is a noise proxy only for a full-span preconditioner.
+    inner (optional): ((a, b), ...) -> per-lane inner products of each
+        pair of batched tangents, taken together (`ops.stpcg.ips` when
+        None). Every inner product and norm TNT and STPCG take over the
+        variable goes through it; a variable split over processes sums
+        them over the processes here.
     """
 
     objective: Callable
@@ -82,6 +87,7 @@ class TNTModel(NamedTuple):
     retract: Callable
     fused_stpcg: Callable | None = None
     precon_spans_full_space: bool = True
+    inner: Callable | None = None
 
 
 class TNTHistory(NamedTuple):
@@ -116,15 +122,15 @@ def _leaf(x) -> torch.Tensor:
 
 
 def stpcg(grad, hess_vp, precon, Delta, params: TNTParams, v0,
-          active=None, syncs: HostSyncs | None = None):
+          active=None, syncs: HostSyncs | None = None, inner=ips):
     """Steihaug-Toint truncated preconditioned CG, batched.
 
     Returns (step, H @ step, step_M_norm, num_iterations), each with a
     leading node axis. `v0` = precon(grad); `active` [N] bool: False returns
-    the zero step without iterating."""
-    target = stpcg_target(grad, v0, params.kappa_fgr, params.theta)
+    the zero step without iterating. `inner`: TNTModel.inner."""
+    target = stpcg_target(grad, v0, params.kappa_fgr, params.theta, inner)
     return stpcg_loop(grad, hess_vp, precon, v0, Delta, target, active,
-                      params.max_tCG_iterations, syncs)
+                      params.max_tCG_iterations, syncs, inner)
 
 
 @dataclasses.dataclass
@@ -184,14 +190,14 @@ def tnt_generic(model: TNTModel, x0, params: TNTParams,
     sqrt_eps = torch.finfo(dtype).eps ** 0.5
     live = (torch.ones(N, dtype=torch.bool, device=dev) if lanes is None
             else lanes)
+    inner = model.inner or ips
 
     def eval_at(x):
         fx = model.objective(x)
         grad, nabla = model.grad_and_nabla(x)
-        gradnorm = torch.sqrt(ip(grad, grad))
         pg = model.precondition(x, grad)
-        pgradnorm = torch.sqrt(ip(pg, pg))
-        return fx, grad, nabla, pg, gradnorm, pgradnorm
+        gg, pp = inner(((grad, grad), (pg, pg)))
+        return fx, grad, nabla, pg, torch.sqrt(gg), torch.sqrt(pp)
 
     fx0, grad0, nabla0, pg0, gn0, pgn0 = eval_at(x0)
     init = TNTState(
@@ -217,7 +223,7 @@ def tnt_generic(model: TNTModel, x0, params: TNTParams,
                    if params.noise_floor_gate is None
                    else params.noise_floor_gate)
         if gate_on:
-            dm_est = 0.5 * ip(st.grad, st.pgrad)
+            dm_est = 0.5 * inner(((st.grad, st.pgrad),))[0]
             noise_floor = 16.0 * torch.finfo(dtype).eps \
                 * (1.0 + st.fx.abs())
             grad_small = grad_small | (dm_est < noise_floor)
@@ -233,12 +239,14 @@ def tnt_generic(model: TNTModel, x0, params: TNTParams,
                 st.grad,
                 lambda v: model.hess_vp(st.x, st.nabla, v),
                 lambda v: model.precondition(st.x, v),
-                st.Delta, params, v0=st.pgrad, active=active, syncs=syncs)
-        h_norm = torch.sqrt(ip(h, h))
+                st.Delta, params, v0=st.pgrad, active=active, syncs=syncs,
+                inner=inner)
+        hh, gh, hHh = inner(((h, h), (st.grad, h), (h, Hh)))
+        h_norm = torch.sqrt(hh)
 
         x_prop = model.retract(st.x, h)
         fx_prop = model.objective(x_prop)
-        dm = -ip(st.grad, h) - 0.5 * ip(h, Hh)
+        dm = -gh - 0.5 * hHh
         df = st.fx - fx_prop
         rel_decrease = df / (sqrt_eps + st.fx.abs())
         rho = df / dm
@@ -314,10 +322,10 @@ def tnt_generic(model: TNTModel, x0, params: TNTParams,
         # (stale after an accepted step; a no-op after a rejection).
         grad_r, nabla_r = model.grad_and_nabla(st.x)
         pg_r = model.precondition(st.x, grad_r)
+        gg, pp = inner(((grad_r, grad_r), (pg_r, pg_r)))
         st = dataclasses.replace(
             st, grad=grad_r, nabla=nabla_r, pgrad=pg_r,
-            gradnorm=torch.sqrt(ip(grad_r, grad_r)),
-            pgradnorm=torch.sqrt(ip(pg_r, pg_r)))
+            gradnorm=torch.sqrt(gg), pgradnorm=torch.sqrt(pp))
         return step_core(st, running)
 
     if params.max_iterations <= 0 or params.max_iterations_accepted <= 0:
@@ -384,7 +392,8 @@ def _batch_of_one(model: TNTModel) -> TNTModel:
     return TNTModel(objective=objective, grad_and_nabla=grad_and_nabla,
                     hess_vp=hess_vp, precondition=precondition,
                     retract=retract,
-                    precon_spans_full_space=model.precon_spans_full_space)
+                    precon_spans_full_space=model.precon_spans_full_space,
+                    inner=model.inner)
 
 
 def tnt_one(model: TNTModel, x0, params: TNTParams,

@@ -762,3 +762,24 @@ def test_sharded_gloo_ranks_share_one_card(dev):
             assert res["backend"] == "gloo" and copies == 2 * calls > 0
             np.testing.assert_allclose(res["f"], single[name]["f"],
                                        rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_split_polish_on_the_card(dev):
+    """The polish with its pose axis split over two gloo ranks on cuda:0
+    (grid3D_synth, 8 nodes, float64; the default case and Huber): 2f equal
+    on both ranks and within rtol 1e-9 of the single-process polish on the
+    card, each rank holding its own nodes' problems only, every collective
+    staged through the host."""
+    names = ["polish", "polish_huber"]
+    world, single = _sharded_on_card("gloo", ["cuda:0", "cuda:0"], names)
+    for name in names:
+        for out in world:
+            res = out[name]
+            assert res["polish_f"] == world[0][name]["polish_f"]
+            np.testing.assert_allclose(res["polish_f"],
+                                       single[name]["polish_f"], rtol=1e-9)
+            assert res["share"]["prob_rows"] == [4]
+            assert not res["share"]["full_probs"]
+            counts = res["polish_counts"]
+            assert counts["host_copies"] == 2 * counts["collectives"] > 0

@@ -126,6 +126,28 @@ def test_polish_forced_regimes_match_jax(regime):
         assert ts.syncs.loops["seg_cg"][0] > 0
 
 
+@pytest.mark.parametrize("d", [3, 2])
+def test_polish_global_matches_jax(d):
+    """polish.polish_global (global_tnt_model with its per-pose Jacobi
+    preconditioner) from the same state in both packages: f within rtol
+    1e-9, t and R within atol 1e-8."""
+    from dpgo_tpu.solvers.polish import polish_global as jpolish
+    from dpgo_tpu.solvers.polish import polish_params as jparams
+
+    from dpgo_tpu_torch.solvers.polish import polish_global, polish_params
+
+    js, ts = _solvers(d)
+    t0, R0 = _start(d)
+    jt, jR, jf = jpolish(js.edges, jnp.asarray(t0), jnp.asarray(R0),
+                         params=jparams(outer=OUTER, tcg=TCG))
+    tt, tR, tf = polish_global(ts.edges, torch.tensor(t0),
+                               torch.tensor(R0),
+                               params=polish_params(outer=OUTER, tcg=TCG))
+    f_start = float(ts._metrics(ts.initialize(t0, R0))[0]) / 2.0
+    _assert_same_polish((float(jf), np.asarray(jt), np.asarray(jR)),
+                        (float(tf), tt.numpy(), tR.numpy()), f_start)
+
+
 def _edges_both(seed, loss):
     """The same random edge set in both packages (6 poses; the last third
     of the edges inter-node)."""
@@ -148,8 +170,9 @@ def _edges_both(seed, loss):
 
 @pytest.mark.parametrize("loss", ["trivial", "huber"])
 def test_global_hessian_vp_matches_jax(loss):
-    """global_tnt_model.hess_vp (the analytic directional derivative of the
-    Euclidean gradient, robust weight derivatives included) equals the JAX
+    """global_tnt_model.hess_vp (split_tnt_model's, which every polish
+    runs: the analytic directional derivative of the Euclidean gradient,
+    robust weight derivatives included) equals the JAX
     package's jax.jvp Hessian to 1e-12 on the same inputs; and, as
     tests/test_polish.py holds for the JAX one, it is self-adjoint on the
     tangent space, tangent, and the gradient matches a finite difference of

@@ -83,33 +83,41 @@ for k in range(2):
 # The JAX references, computed in a pool of processes while the ranks run
 # (costliest first); the halo strategies share their JAX run.
 JAX_CASES = ("acc_boundary", "star", "star_psi", "huber_dynamic",
-             "plain_boundary", "segment", "d2", "polish", "aa")
+             "plain_boundary", "segment", "d2", "polish", "polish_sharded",
+             "aa")
 
 
 def _jax_ref(name):
     """The JAX package's single-process solver on the case (in a pool
     process: CPU, float64): (2f history, 2|grad| history) or the polish's
-    2f."""
+    2f. "polish_sharded": the polish case through the JAX package's
+    ShardedDPGOSolver on the 8 virtual CPU devices tests/conftest.py asks
+    XLA for (the pool inherits the environment)."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from dpgo_tpu import driver
     from dpgo_tpu.losses import Loss
+    from dpgo_tpu.parallel.spmd import ShardedDPGOSolver
     from dpgo_tpu.solvers.mm import MMOptions
     from dpgo_tpu.solvers.tnt import TNTParams
 
-    c = ranks.case_setup(name)
+    sharded = name == "polish_sharded"
+    c = ranks.case_setup("polish" if sharded else name)
     opts = dict(c["opts"])
     if "tnt" in opts:
         opts["tnt"] = TNTParams(**dataclasses.asdict(opts["tnt"]))
     cls = driver.DPGOStarSolver if c["cls"] == "star" else driver.DPGOSolver
+    if sharded:
+        assert len(jax.devices()) == 8, jax.devices()
+        cls = ShardedDPGOSolver
     s = cls(_jax_graph(2 if c["graph"] == "d2" else 3), num_nodes=NUM_NODES,
             opts=MMOptions(**opts), loss=Loss(c["loss"]),
             loss_reg=ranks.LOSS_REG, dtype=jnp.float64, **c["kw"])
     st = s.initialize()
     if not c["steps"]:
-        _, f2 = s.polish(st, **ranks.POLISH)
+        _, f2 = s.polish(st, **c["polish"])
         return float(f2)
     _, _, (f, g) = s.run_steps_history(st, jnp.zeros((), jnp.int32),
                                        c["steps"])
@@ -120,8 +128,9 @@ def _jax_ref(name):
 def background(tmp_path_factory):
     """Everything slow, started at once: both spawned worlds (`worlds`:
     {world size: future of the ranks' results}), the JAX references
-    (`jax`: {case: future}), the JAX sharded-Star subprocess (`star`) and
-    the torchrun group (`torchrun`), with their output files in `logs`."""
+    (`jax`: {case: future}) and the torchrun group (`torchrun`), with their
+    output files in `logs`. (The JAX sharded-Star subprocess starts in its
+    test, after the others' results are in: see there.)"""
     from dpgo_tpu_torch.io.g2o import write_g2o_file
     from dpgo_tpu_torch.parallel.launch import spawn
 
@@ -136,13 +145,6 @@ def background(tmp_path_factory):
         jax={name: jax_pool.submit(_jax_ref, name) for name in JAX_CASES},
         logs=tmp_path_factory.mktemp("spmd"))
     logs = bg.logs
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
-               "--xla_cpu_collective_call_warn_stuck_timeout_seconds=1 "
-               "--xla_cpu_collective_call_terminate_timeout_seconds=3")
-    with open(logs / "out", "w") as out, open(logs / "err", "w") as err:
-        bg.star = subprocess.Popen([sys.executable, "-c", JAX_STAR_SCRIPT],
-                                   env=env, cwd=REPO, stdout=out, stderr=err)
     # torchrun with 2 ranks on the graph written as .g2o text.
     g2o = str(logs / "graph.g2o")
     write_g2o_file(g2o, *_truth(), _graphs()["d3"])
@@ -158,10 +160,9 @@ def background(tmp_path_factory):
     try:
         yield bg
     finally:
-        for p in (bg.star, bg.torchrun):
-            if p.poll() is None:
-                p.kill()
-            p.wait()
+        if bg.torchrun.poll() is None:
+            bg.torchrun.kill()
+        bg.torchrun.wait()
         threads.shutdown(wait=True)
         jax_pool.shutdown(wait=True, cancel_futures=True)
         for f in list(bg.worlds.values()) + list(bg.jax.values()):
@@ -285,6 +286,147 @@ def test_sharded_polish_matches_jax(world, jax_ref):
     res, ref = _check_rows(world, "polish")
     np.testing.assert_allclose(res["polish_f"], jf, rtol=1e-9)
     np.testing.assert_allclose(res["polish_f"], ref["polish_f"], rtol=1e-12)
+
+
+def test_split_polish_matches_jax_sharded(world, jax_ref):
+    """The pose axis split over 2 and 4 ranks against the JAX package's
+    sharded polish (pose axis sharded over 8 virtual devices, GSPMD): 2f
+    at rtol 1e-9, and at 1e-12 against the port's single-process polish."""
+    jf = jax_ref("polish_sharded")
+    res, ref = _check_rows(world, "polish")
+    np.testing.assert_allclose(res["polish_f"], jf, rtol=1e-9)
+    np.testing.assert_allclose(res["polish_f"], ref["polish_f"], rtol=1e-12)
+
+
+def _polish_history_equal(world, name, ref):
+    """Every rank's TNT history (f, Delta, inner iterations, rho,
+    accepted) equals rank 0's exactly, and the single process's: the
+    branches and CG counts exactly, f and Delta at rtol 1e-12 (rho, a
+    ratio of differences of nearby objectives, is not compared)."""
+    h0 = world[0][name]["polish_history"]
+    for out in world:
+        for k, v in out[name]["polish_history"].items():
+            np.testing.assert_array_equal(v, h0[k], err_msg=k)
+    hr = ref["polish_history"]
+    for k in ("inner_iterations", "accepted"):
+        np.testing.assert_array_equal(h0[k], hr[k], err_msg=k)
+    for k in ("fx", "Delta"):
+        np.testing.assert_allclose(h0[k], hr[k], rtol=1e-12, atol=1e-12,
+                                   err_msg=k)
+    return h0
+
+
+@pytest.mark.parametrize("name", ranks.POLISH_CASES[1:])
+def test_split_polish_variants_match_single(world, name):
+    """The split polish with segment levels that straddle the ranks, in the
+    forced segment regime (segment-Schwarz CG in the node-block
+    preconditioner), with local gauge centering and the ring exchange,
+    under Huber, and from turned rotations at a trust radius of 100, where
+    TNT rejects steps: 2f at rtol 1e-12 against the port's single-process
+    polish, every rank's TNT history equal."""
+    res, ref = _check_rows(world, name)
+    np.testing.assert_allclose(res["polish_f"], ref["polish_f"], rtol=1e-12)
+    h = _polish_history_equal(world(), name, ref)
+    if name == "polish_reject":
+        assert 0 < int((~h["accepted"]).sum()) < len(h["accepted"]), h
+        assert (h["rho"][~h["accepted"]] < 0.05).all()
+
+
+def _predicted(counts, share, coarse_levels, d):
+    """(exchanges, collectives) of a split polish up to its final
+    all_gather, from its outer and CG iterations: setup (the coarse
+    levels: one exchange for the point's gradient, one per chunk of 128
+    basis directions, an all_reduce of the block sums and one of the
+    Galerkin operator per level); the first evaluation (the objective's
+    exchange and all_reduce, the gradient's exchange, the coarse
+    restriction's all_reduce, one for the two norms); per outer iteration
+    two all_reduces opening STPCG, one for the step's three scalars, the
+    trial objective's exchange and all_reduce, and after the first a
+    gradient exchange, a restriction and the norms; per CG iteration one
+    exchange and 2 (+ 1 restriction) all_reduces. A ring exchange is
+    `ring_rounds` collectives, the others one."""
+    O, T = counts["outer"], counts["cg_iterations"]
+    c = 1 if coarse_levels else 0
+    K = 3 if d == 2 else 6
+    chunks = sum(-(-n * K // 128) for n in coarse_levels)
+    L = len(coarse_levels)
+    E = c * (1 + chunks) + 2 + T + O + (O - 1)
+    AR = 2 * L + 2 + c + 4 * O + T * (2 + c) + (O - 1) * (1 + c)
+    X = share["ring_rounds"] if share["strategy"] == "ring" else 1
+    return E, E * X + AR
+
+
+@pytest.mark.parametrize("name", ranks.POLISH_CASES)
+def test_split_polish_holds_its_share(world, name):
+    """After a split polish a rank holds its nodes' problems only (no
+    whole problem set) and the edges touching its poses (each inter-rank
+    edge on both ranks), and it made exactly the exchanges and
+    collectives the design predicts (`_predicted`): per CG iteration one
+    halo exchange of the direction and 3 all_reduces of scalars (with
+    the coarse level)."""
+    meas = _graphs()["d3"]
+    c = ranks.case_setup(name)
+    segs = [m for m in c["polish"].get("coarse_segments", ())
+            if m < meas.num_poses]
+    levels = [NUM_NODES] + segs if c["polish"]["coarse"] else []
+    w = world()
+    for out in w:
+        res = out[name]
+        share, counts = res["share"], res["polish_counts"]
+        lo, hi = share["range"]
+        npd = res["node_hi"] - res["node_lo"]
+        assert (lo, hi) == (res["node_lo"] * 8, res["node_hi"] * 8)
+        assert share["prob_rows"] == [npd] and not share["full_probs"]
+        touch = ((meas.i >= lo) & (meas.i < hi)) | ((meas.j >= lo)
+                                                    & (meas.j < hi))
+        assert share["edges"] == int(touch.sum())
+        E, calls = _predicted(counts, share, levels, 3)
+        assert counts["exchanges"] == E
+        assert counts["collectives"] == calls
+        assert counts["host_copies"] == 0
+        assert counts == w[0][name]["polish_counts"]
+    # The inter-rank edges are on both ranks that they touch.
+    assert sum(out[name]["share"]["edges"] for out in w) > len(meas)
+
+
+@pytest.mark.parametrize("case", ranks.ORACLE_CASES,
+                         ids=lambda c: "-".join(c))
+def test_split_oracles_match_global(world, case):
+    """On every rank: the objective shares summed over the ranks, the
+    rank's rows of the Euclidean gradient and of the Hessian-vector
+    products (two directions in a batch; Huber's weight derivative
+    included) equal the port's global evaluate_f /
+    evaluate_euclidean_grad / euclidean_hess_vp at rtol 1e-12."""
+    from dpgo_tpu_torch.losses import Loss
+    from dpgo_tpu_torch.objective import (EdgeData, evaluate_euclidean_grad,
+                                          evaluate_f)
+    from dpgo_tpu_torch.solvers.polish import euclidean_hess_vp
+
+    gname, loss = case
+    meas = _graphs()[gname]
+    s, _ = ranks.make_solver("d2" if gname == "d2" else "acc_boundary",
+                             _graphs(), "cpu", sharded=False)
+    edges = EdgeData.from_measurements(meas, node_of=s.part.node_of,
+                                       device="cpu")
+    t, R, vt, vR = (torch.as_tensor(np.ascontiguousarray(x))
+                    for x in ranks.oracle_point(meas))
+    kw = dict(loss=Loss(loss), loss_reg=ranks.LOSS_REG)
+    f = float(evaluate_f(edges, t, R, **kw))
+    gt, gR = evaluate_euclidean_grad(edges, t, R, **kw)
+    ht, hR = euclidean_hess_vp(edges, t, R, vt, vR, **kw)
+    w = world()
+    ranges = []
+    for out in w:
+        res = out["oracles"][case]
+        lo, hi = res["range"]
+        ranges.append((lo, hi))
+        np.testing.assert_allclose(res["f"], f, rtol=1e-12)
+        for key, ref in (("gt", gt[lo:hi]), ("gR", gR[lo:hi]),
+                         ("ht", ht[:, lo:hi]), ("hR", hR[:, lo:hi])):
+            np.testing.assert_allclose(res[key], ref.numpy(), rtol=1e-12,
+                                       atol=1e-12, err_msg=key)
+    assert ranges[0][0] == 0 and ranges[-1][1] == meas.num_poses
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
 
 
 def test_sharded_run_steps_equals_stepping(world):
@@ -414,9 +556,28 @@ def test_jax_sharded_star_forced_fallbacks_deadlock(background):
     fallback's psum wait for the others: XLA reports the stuck all-reduce
     and ends the process (its collective timeouts shortened here). The
     port sums the squared step over all ranks
-    (test_sharded_star_matches_jax_and_single)."""
-    proc, logs = background.star, background.logs
-    proc.wait(timeout=240)
+    (test_sharded_star_matches_jax_and_single).
+
+    XLA's CPU collectives sometimes pair the mismatched all-reduces when the
+    host is crowded (six copies of the script run at once: one in six
+    finished step 1), so the subprocess starts here, after the spawned
+    worlds and the JAX references have finished."""
+    logs = background.logs
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+               "--xla_cpu_collective_call_warn_stuck_timeout_seconds=1 "
+               "--xla_cpu_collective_call_terminate_timeout_seconds=3")
+    for f in list(background.worlds.values()) + list(background.jax.values()):
+        f.exception(timeout=360)
+    with open(logs / "out", "w") as out, open(logs / "err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", JAX_STAR_SCRIPT],
+                                env=env, cwd=REPO, stdout=out, stderr=err)
+    try:
+        proc.wait(timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     out, err = (logs / "out").read_text(), (logs / "err").read_text()
     assert proc.returncode != 0, out
     assert "step 0 done" in out and "step 1 done" not in out, out

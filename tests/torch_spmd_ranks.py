@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 STEPS = 12
@@ -20,6 +21,17 @@ EDGEWISE = dict(dense_limit=0)
 # Polish: outer iterations and the STPCG cap (the two packages' CG part by
 # rounding at ~20 iterations; tests/test_torch_polish.py).
 POLISH = dict(outer=6, tcg=12, coarse=True)
+# The polish cases: the default, with contiguous-segment levels (16
+# segments of 4 poses align with the ranks' pose ranges, 5 straddle them),
+# in the forced segment regime, with local gauge centering and the ring
+# exchange, under Huber, and from turned rotations (N(0, 0.3) per entry,
+# then projected) with a trust radius of 100, where TNT rejects steps.
+POLISH_CASES = ["polish", "polish_levels", "polish_segment",
+                "polish_gauge_ring", "polish_huber", "polish_reject"]
+REJECT_DELTA0 = 100.0
+# The split oracles' cases: graph x loss.
+ORACLE_CASES = [(g, loss) for g in ("d3", "d2") for loss in ("trivial",
+                                                              "huber")]
 
 
 def case_setup(name: str) -> dict:
@@ -52,8 +64,20 @@ def case_setup(name: str) -> dict:
         # Local gauge centering (the float32 default) in float64: the ring
         # exchange re-expresses the owners' translations (halo_dc).
         c.update(opts=dict(accelerated=True, local_gauge=True), halo="ring")
-    elif name == "polish":
-        c.update(opts=dict(tnt=TNTParams(max_iterations=0)), steps=0)
+    elif name in POLISH_CASES:
+        c.update(opts=dict(tnt=TNTParams(max_iterations=0)), steps=0,
+                 polish=dict(POLISH))
+        if name == "polish_levels":
+            c["polish"]["coarse_segments"] = (16, 5)
+        elif name == "polish_segment":
+            c.update(kw=SEG)
+        elif name == "polish_gauge_ring":
+            c["opts"].update(local_gauge=True)
+            c.update(halo="ring")
+        elif name == "polish_huber":
+            c.update(loss="huber")
+        elif name == "polish_reject":
+            c.update(Delta0=REJECT_DELTA0)
     else:
         raise KeyError(name)
     return c
@@ -62,7 +86,7 @@ def case_setup(name: str) -> dict:
 HASH_CASES = [f"{a}_{h}" for a in ("acc", "plain")
               for h in ("boundary", "gather", "ring")]
 CASES = HASH_CASES + ["huber_dynamic", "aa", "d2", "segment", "star",
-                      "star_psi", "polish", "gauge_ring"]
+                      "star_psi", "gauge_ring"] + POLISH_CASES
 
 
 def make_solver(name: str, graphs: dict, device, sharded: bool, group=None):
@@ -86,9 +110,21 @@ def make_solver(name: str, graphs: dict, device, sharded: bool, group=None):
                **c["kw"], **extra), c
 
 
+def turned(R, seed: int = 7, scale: float = 0.3):
+    """Rotations R [P, d, d] plus N(0, scale) per entry, projected back onto
+    SO(d) (numpy SVD)."""
+    M = R + scale * np.random.default_rng(seed).normal(size=R.shape)
+    U, _, Vt = np.linalg.svd(M)
+    D = np.ones(R.shape[:-1])
+    D[:, -1] = np.linalg.det(U @ Vt)
+    return (U * D[:, None, :]) @ Vt
+
+
 def drive(solver, c) -> dict:
     """initialize + the case's steps with history (or the polish); the
     result both the sharded run and the single-process run report."""
+    from dpgo_tpu_torch.solvers.polish import polish_params
+
     st = solver.initialize()
     out = {}
     if c["steps"]:
@@ -96,8 +132,18 @@ def drive(solver, c) -> dict:
         assert k == c["steps"]
         out.update(f=f.cpu().numpy(), g=g.cpu().numpy())
     else:
-        st, f2 = solver.polish(st, **POLISH)
-        out.update(polish_f=f2)
+        kw = dict(c["polish"])
+        if "Delta0" in c:
+            t, R = (x.cpu().numpy() for x in solver.gather_global(st))
+            st = solver.initialize(t, turned(R))
+            kw["params"] = dataclasses.replace(
+                polish_params(outer=kw["outer"], tcg=kw["tcg"]),
+                Delta0=c["Delta0"])
+        st, f2 = solver.polish(st, **kw)
+        stats = solver.polish_stats
+        out.update(polish_f=f2, polish_history=stats["history"],
+                   polish_counts={k: v for k, v in stats.items()
+                                  if k != "history"})
     fe, ge = solver._metrics(st)
     out.update(exact=(float(fe), float(ge)), t=st.Z.t.cpu().numpy(),
                R=st.Z.R.cpu().numpy(), th=st.Z.th.cpu().numpy())
@@ -194,6 +240,68 @@ def _run_with_callback(graphs, device, rank: int):
     return hist
 
 
+def oracle_point(meas, seed: int = 3):
+    """A global point (t, R) and a batch of two directions (vt, vR) of the
+    graph's pose count and dimension, from `seed` (numpy)."""
+    rng = np.random.default_rng(seed)
+    P, d = meas.num_poses, meas.d
+    t = 3.0 * rng.normal(size=(P, d))
+    R = turned(np.broadcast_to(np.eye(d), (P, d, d)), seed, 1.0)
+    return (t, R, rng.normal(size=(2, P, d)), rng.normal(size=(2, P, d, d)))
+
+
+def split_oracles(graphs, device) -> dict:
+    """On this rank, per graph and loss of ORACLE_CASES: its pose range,
+    the objective's node partials summed over the ranks and nodes, and its rows of the
+    Euclidean gradient and of the Hessian-vector products along two
+    directions (one exchange of the point, one of the batch), at
+    `oracle_point`."""
+    from dpgo_tpu_torch.losses import Loss
+    from dpgo_tpu_torch.objective import split_euclidean_grad, split_f
+    from dpgo_tpu_torch.parallel.spmd import ShardedDPGOSolver
+    from dpgo_tpu_torch.solvers.polish import split_hess_vp, with_halo
+
+    out = {}
+    for gname, loss in ORACLE_CASES:
+        meas = graphs[gname]
+        s = ShardedDPGOSolver(meas, graphs["num_nodes"], loss=Loss(loss),
+                              loss_reg=LOSS_REG, device=device)
+        sp = s.pose_split()
+        own = slice(sp.lo, sp.hi)
+        t, R, vt, vR = (torch.as_tensor(np.ascontiguousarray(x),
+                                        dtype=torch.float64, device=device)
+                        for x in oracle_point(meas))
+        te, Re = with_halo(s.exchange_rows, t[own], R[own])
+        vte, vRe = with_halo(s.exchange_rows, vt[:, own], vR[:, own])
+        f = s.comm.all_reduce(split_f(sp.edges, te, Re, s.loss,
+                                      s.loss_reg)).sum()
+        gt, gR = split_euclidean_grad(sp.edges, te, Re, s.loss, s.loss_reg)
+        ht, hR = split_hess_vp(sp.edges, te, Re, vte, vRe, s.loss,
+                               s.loss_reg)
+        out[(gname, loss)] = {
+            "range": (sp.lo, sp.hi), "f": float(f),
+            **{k: v.cpu().numpy() for k, v in
+               dict(gt=gt, gR=gR, ht=ht, hR=hR).items()}}
+    return out
+
+
+def split_share(solver) -> dict:
+    """What the rank holds after a polish: its pose range, the number of
+    edges of its share, the leading axis of every problem tensor, whether
+    it kept a whole problem set, and what the collective count depends
+    on (halo strategy, ring rounds, node count, dimension)."""
+    sp = solver.pose_split()
+    return {
+        "range": (sp.lo, sp.hi), "edges": int(sp.edges.edges.i.shape[0]),
+        "halo": len(sp.halo),
+        "prob_rows": sorted({getattr(solver.probs, f.name).shape[0]
+                             for f in dataclasses.fields(solver.probs)
+                             if isinstance(getattr(solver.probs, f.name),
+                                           torch.Tensor)}),
+        "full_probs": hasattr(solver, "_full_probs"),
+        "strategy": solver.halo, "ring_rounds": solver.ring_rounds}
+
+
 def run_cases(rank: int, world_size: int, device, graphs: dict,
               names=None) -> dict:
     """The cases `names` (every case, and the checks of run_steps, run's
@@ -209,6 +317,8 @@ def run_cases(rank: int, world_size: int, device, graphs: dict,
                    comm=(solver.comm.calls, solver.comm.bytes,
                          solver.comm.host_copies),
                    backend=solver.comm.backend)
+        if name in POLISH_CASES:
+            res["share"] = split_share(solver)
         out[name] = res
     if names is not None:
         return out
@@ -216,6 +326,7 @@ def run_cases(rank: int, world_size: int, device, graphs: dict,
     out["run_callback"] = _run_with_callback(graphs, device, rank)
     out["errors"] = _errors(graphs, device)
     out["build_ranges"] = _build_ranges(graphs, device)
+    out["oracles"] = split_oracles(graphs, device)
     return out
 
 
