@@ -3,11 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from `dpgo_tpu_torch/csrc/` (nvcc, one
+Builds the port's CUDA kernels from `dpgo_tpu_torch/csrc/` (nvcc, one
 process per source, at first use), holds each against its plain PyTorch
 version at the shapes of the paths below (K2 in float32 and float64), then
 drives these paths once each through the public entry points, the refined
 TNT preset, 16 nodes, float32, 150 iterations:
+
+Every path through DPGOSolver / DPGOStarSolver takes the graph route: the
+step captured once as a CUDA graph (its branches IF nodes and its bounded
+loops WHILE nodes, through the flag kernel `csrc/graph_cond.cu`, held
+against the host-read branch and loop in its own phase) and replayed per
+iteration, 0 host syncs per step held; launches, loop trips and master
+fallbacks are read from the device counters the step bumps. rim,
+manhattan, star and rim100k_prox run again on the host-read route in the
+same process (`run_steps_eager`, the plain version of the control flow):
+2f held within 1e-3 of the graph route's and of the exact oracle, it/s,
+host syncs, busy share and K1 / K2 launches per step printed for both,
+with the capture's seconds and pool memory. Each phase prints its
+seconds, and the end the whole run's.
 
 1. rim: `artifacts/rim_synth.g2o` (10,240 poses, 640 per node, d = 3),
    AMM-PGO#, trivial loss. Kernels K1 (D = 3) and K2.
@@ -286,6 +299,75 @@ def bound(nbytes: float, flops: float, flop_s: float = F32_FLOP_S):
                                        else "operations")
 
 
+def phase_graph_cond(rng, dev, card, nodes=64, reps=20):
+    """The conditional-node kernel (csrc/graph_cond.cu: one thread hands a
+    flag on the card to the graph's IF / WHILE node) against its plain
+    version, the flag read on the host. A branch and a capped loop
+    (utils.device_cond, utils.bounded_while) on 16 vectors drawn from
+    `rng`: the captured graph replayed on each and the host-read route on
+    each, held equal. Times: `ms` per IF node whose body is skipped (a
+    graph of `nodes` of them, CUDA events), `plain_ms` per host read of a
+    flag (bool() of a 0-d tensor on the card, host clock); the bound is
+    the byte of the flag over the HBM rate."""
+    import numpy as np
+    import torch
+
+    from dpgo_tpu_torch.ops import graph_nodes
+    from dpgo_tpu_torch.utils import (bounded_while, device_cond, flatten,
+                                      route)
+
+    def step(v):
+        y = device_cond(v.sum() > 0, lambda: 2.0 * v, lambda: v - 1.0)
+        (z,) = bounded_while(
+            64, lambda c: c[0] < 3.0,
+            lambda c, run: (torch.where(run, c[0] + 0.5, c[0]),), (y,))
+        return z
+
+    inputs = [torch.tensor(rng.normal(size=32) * 3.0, dtype=torch.float32,
+                           device=dev) for _ in range(16)]
+    with route("host"):
+        plain = [step(v) for v in inputs]
+    graph_nodes.warm_streams(dev)
+    static = inputs[0].clone()
+    graph = torch.cuda.CUDAGraph()
+    with graph_nodes.capture(graph, dev, torch.cuda.graph_pool_handle()) \
+            as body_pool, route("capture"):
+        out = step(static)
+    err = 0.0
+    for v, ref in zip(inputs, plain):
+        static.copy_(v)
+        graph.replay()
+        err = max(err, float((out - ref).abs().max()))
+    check(err == 0.0, f"graph_cond: the captured branch and loop differ "
+          f"from the host-read route by {err}")
+
+    skip = torch.zeros((), dtype=torch.bool, device=dev)
+    many = torch.cuda.CUDAGraph()
+    x = torch.zeros(4, device=dev)
+    with graph_nodes.capture(many, dev, torch.cuda.graph_pool_handle()) \
+            as pool2:
+        for _ in range(nodes):
+            with graph_nodes.conditional(skip, graph_nodes.IF):
+                x.add_(1.0)
+    ms = cuda_ms(many.replay, reps) / nodes
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bool(flag)
+    plain_ms = 1e3 * (time.perf_counter() - t0) / 200
+    bnd, by = bound(1.0, 0.0)
+    print(f"graph_cond [{card}]: captured branch + loop equal to the "
+          f"host-read route on {len(inputs)} inputs (max abs err {err}); "
+          f"{ms * 1e3:.2f} us per IF node with its flag kernel (body "
+          f"skipped, {nodes} in one graph), host read of a flag "
+          f"{plain_ms * 1e3:.2f} us; bound {bnd:.2e} ms ({by})")
+    del body_pool, pool2
+    return {"max_abs_err": err, "ms": ms, "device_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "shapes": {"branch_inputs": [32]}}
+
+
 def phase_polar_so3(rng, dev, card, n=NUM_NODES * 640):
     """K2 against its plain version on n matrices (10,240: the rim paths'
     projection batch, 16 nodes x 640 poses; 102,400: the rim100k paths',
@@ -557,7 +639,15 @@ def phase_stpcg(label, p, st, tp, card, deltas=(1.0, 0.02, 100.0),
               f"{flops / 1e9:.3f} GFLOP), device time at "
               f"{bnd / dms:.3f} of the bound; device ms by C "
               + ", ".join(f"{C}: {t:.4f}" for C, t in dev_by_c.items()))
+        # The operators (16 x nd^2 floats) cannot stay on chip between CG
+        # iterations, so each pass of a node's k streams its Hred and P
+        # again: the bound of those passes, beside the read-once bound.
+        bnd_k = 1e3 * streamed / HBM_BYTES_S
+        print(f"K1 {label}, Delta = {Delta}: bound of the operator passes "
+              f"(k per node x {nd * nd * 4 / 1e6:.2f} MB per operator pass) "
+              f"{bnd_k:.4f} ms, device time at {bnd_k / dms:.3f} of it")
         tag = "" if Delta == 1.0 else "100"
+        out.update({f"bound_passes_ms{tag}": bnd_k})
         out.update({f"ms{tag}": ms, f"device_ms{tag}": dms,
                     f"plain_ms{tag}": plain, f"bound_ms{tag}": bnd,
                     f"bound_by{tag}": by, f"streamed_bytes{tag}": streamed,
@@ -567,25 +657,29 @@ def phase_stpcg(label, p, st, tp, card, deltas=(1.0, 0.02, 100.0),
 
 
 def profile_path(name, solver, init, card, at=PROFILE_AT,
-                 steps=PROFILE_STEPS):
+                 steps=PROFILE_STEPS, eager=False):
     """Steps `at` to `at + steps` of a fresh run of one path under
     torch.profiler, after `steps` steps timed without it:
-    device ms per step (all CUDA activity), its share of the unprofiled wall
-    ms per step (the busy share), K1's and K2's device ms and launches per
-    step, and the six largest kernels; printed and returned."""
+    device ms per step (all CUDA activity, the kernels inside graph replays
+    included), its share of the unprofiled wall ms per step (the busy
+    share), K1's and K2's device ms and launches per step, and the six
+    largest kernels; printed and returned. On the graph route
+    (`run_steps`), or with `eager` on the host-read route
+    (`run_steps_eager`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    st, k = solver.run_steps(solver.initialize(*init), 0, at - steps)
+    run = solver.run_steps_eager if eager else solver.run_steps
+    st, k = run(solver.initialize(*init), 0, at - steps)
     syncs0 = solver.syncs.count
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st, k = solver.run_steps(st, k, steps)
+    st, k = run(st, k, steps)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     syncs = (solver.syncs.count - syncs0) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        solver.run_steps(st, k, steps)
+        run(st, k, steps)
         torch.cuda.synchronize()
     kt = kernel_times(prof)
     total = sum(ms for ms, _ in kt.values()) / steps
@@ -598,15 +692,17 @@ def profile_path(name, solver, init, card, at=PROFILE_AT,
     k1_ms, k1_n = of("stpcg_kernel")
     k2_ms, k2_n = of("polar_so3_kernel")
     top = sorted(kt.items(), key=lambda kv: -kv[1][0])[:6]
-    prof = {"steps": [at, at + steps], "device_ms_per_step": total,
+    prof = {"route": "eager" if eager else "graph",
+            "steps": [at, at + steps], "device_ms_per_step": total,
             "wall_ms_per_step": wall_ms, "host_syncs_per_step": syncs,
             "busy_share": total / wall_ms, "k1_ms_per_step": k1_ms,
             "k1_launches_per_step": k1_n, "k2_ms_per_step": k2_ms,
             "k2_launches_per_step": k2_n,
             "top": [[key[:80], ms / steps, n / steps]
                     for key, (ms, n) in top]}
-    print(f"{name} profile of steps {at}-{at + steps}"
-          f" [{card}]: device {total:.3f} ms/step of {wall_ms:.3f} wall "
+    print(f"{name} profile of steps {at}-{at + steps}, "
+          f"{prof['route']} route [{card}]: device {total:.3f} ms/step of "
+          f"{wall_ms:.3f} wall "
           f"(busy share {total / wall_ms:.3f}), {syncs:.2f} host syncs/step; "
           f"K1 {k1_ms:.3f} ms/step over "
           f"{k1_n:.2f} launches, K2 {k2_ms:.4f} ms/step over {k2_n:.2f}; "
@@ -658,6 +754,16 @@ def run_slice(solver, init, label, steps, runs=2):
 
     st = solver.initialize(*init)
     f0, g0 = solver._metrics(st)
+    # The graph route captures its step at the first call: made here on a
+    # one-step run and timed apart (graph_stats), outside the timed runs;
+    # that step's launches and fallbacks are not counted.
+    from dpgo_tpu_torch.utils import DeviceCounters
+    snap = DeviceCounters.snapshot()
+    fired = {n: t.clone() for n, t in getattr(solver, "_fired", {}).items()}
+    solver.run_steps(st, 0, 1)
+    DeviceCounters.restore(snap)
+    for n, t in fired.items():
+        solver._fired[n].copy_(t)
     torch.cuda.synchronize()
     syncs0 = solver.syncs.count
     t0 = time.perf_counter()
@@ -688,21 +794,38 @@ def run_slice(solver, init, label, steps, runs=2):
     return float(f0), fh, float(f_end), steps / secs, syncs, st
 
 
-def kernel_counts():
-    import torch
+KERNEL_NAMES = ("polar_so3", "polar_so3_f64", "stpcg", "stpcg_d2",
+                "graph_cond")
+# The loops whose entries and trips the step counts on the device.
+DEVICE_LOOPS = ("tnt", "stpcg", "seg_cg")
 
-    from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
-    by_dtype = polar_so3_cuda.Launches.by_dtype
-    return {"polar_so3": by_dtype[torch.float32],
-            "polar_so3_f64": by_dtype[torch.float64],
-            "stpcg": stpcg_cuda.Launches.by_d[3],
-            "stpcg_d2": stpcg_cuda.Launches.by_d[2]}
+
+def kernel_counts():
+    """Launches per kernel since the last reset, from the device counters
+    each wrapper bumps where it launches its kernel (inside a captured
+    step too, at every replay); reading them waits for the card."""
+    from dpgo_tpu_torch.utils import DeviceCounters
+    return {n: DeviceCounters.read(n) for n in KERNEL_NAMES}
 
 
 def reset_counts():
     from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
+    from dpgo_tpu_torch.utils import DeviceCounters
     polar_so3_cuda.Launches.reset()
     stpcg_cuda.Launches.reset()
+    DeviceCounters.reset()
+
+
+def device_loop_stats() -> dict:
+    """Trips per entry of the step's bounded loops since the last reset,
+    from the device counters: {name: [entries, trips per entry]}."""
+    from dpgo_tpu_torch.utils import DeviceCounters
+    out = {}
+    for name in DEVICE_LOOPS:
+        n = DeviceCounters.read(name + ".entries")
+        if n:
+            out[name] = [n, DeviceCounters.read(name + ".trips") / n]
+    return out
 
 
 def loop_stats(syncs) -> dict:
@@ -758,14 +881,22 @@ def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
     check(solver.fused_stpcg_engaged() == fused, f"{name}: "
           f"fused_stpcg_engaged() is {not fused}")
     solver.syncs = HostSyncs()
-    fallbacks = getattr(solver, "fallbacks", None)
-    if fallbacks is not None:
-        fallbacks.update(dict.fromkeys(fallbacks, 0))
+    star = hasattr(solver, "reset_fallbacks")
+    if star:
+        solver.reset_fallbacks()
     if reset:
         reset_counts()
     f0, fh, f_exact, its, syncs, st = run_slice(solver, init, name, steps,
                                                 runs)
     launches = kernel_counts()
+    fallbacks = solver.fallbacks if star else None
+    graph = solver.graph_stats()
+    check(graph is not None, f"{name}: the step was not captured")
+    print(f"{name}: graph route, step captured in {graph['capture_s']:.2f} s "
+          f"after a {graph['warmup_s']:.2f} s warm-up step; its pools hold "
+          f"{graph['pool_bytes'] / 2**20:.1f} MiB [{card}]")
+    check(syncs == 0, f"{name}: {syncs} host syncs per step on the graph "
+          "route")
     over = "two runs" if runs == 2 else "one run"
     print(f"{name} with kernels [{card}]: 2f init {f0:.6f}, 2f at {steps} "
           f"{fh[-1]:.6f} (exact oracle {f_exact:.6f}), {its:.2f} it/s, "
@@ -785,10 +916,10 @@ def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
     if not fused:
         check(launches["stpcg"] == launches["stpcg_d2"] == 0,
               f"{name}: K1 was launched off the dense path: {launches}")
-    loops = loop_stats(solver.syncs)
+    loops = device_loop_stats()
     if loops:
-        print(f"{name}: host-driven loops, [entries, trips per entry] over "
-              f"{over} of {steps} steps: {loops}")
+        print(f"{name}: bounded loops on the device, [entries, trips per "
+              f"entry] over {over} of {steps} steps: {loops}")
     check(fh[-1] < f0, f"{name}: 2f did not decrease: {fh[-1]} >= {f0}")
     check(abs(f_exact - fh[-1]) <= 1e-3 * abs(f_exact),
           f"{name}: node-objective sum {fh[-1]} disagrees with the global "
@@ -798,13 +929,15 @@ def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
     twin = copy.copy(solver)
     twin.probs = dataclasses.replace(solver.probs, kernels=False)
     twin.syncs = HostSyncs()
-    if fallbacks is not None:
-        twin.fallbacks = dict.fromkeys(fallbacks, 0)
+    if star:
+        twin._fired = {n: torch.zeros_like(t)
+                       for n, t in solver._fired.items()}
     before = kernel_counts()
     _, fhp, _, its_p, syncs_p, _ = run_slice(twin, init, f"{name} plain",
                                              steps, runs)
-    check(before == kernel_counts(), f"{name}: the plain run launched a "
-          "kernel")
+    after = kernel_counts()
+    check(all(before[k] == after[k] for k in KERNEL_NAMES[:4]),
+          f"{name}: the plain run launched a kernel")
     rel = abs(fh[-1] - fhp[-1]) / abs(fhp[-1])
     print(f"{name} with plain versions [{card}]: 2f at {steps} "
           f"{fhp[-1]:.6f}, "
@@ -834,11 +967,68 @@ def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
                "f2_step1_vs_plain_of_decrease": float(dec[0]),
                "host_syncs_per_step": syncs,
                "plain_host_syncs_per_step": syncs_p, "launches": launches,
+               "launches_per_step": {k: v / (runs * steps)
+                                     for k, v in launches.items()},
+               "graph": graph,
                "largest_rise_of_2f": rise, "loops": loops, "card": card}
     if fallbacks is not None:
         summary["fallbacks_per_step"] = {k: v / (runs * steps)
                                          for k, v in fallbacks.items()}
     return summary, launches, st
+
+
+# The paths whose control flow runs on both routes in the same process:
+# the graph route (run_path) and the host-read route (eager_route).
+EAGER_PATHS = ("rim", "manhattan", "star", "rim100k_prox")
+
+
+def eager_route(name, solver, init, card, summary, steps=None):
+    """The path again on the host-read route (`run_steps_eager`, every
+    loop and branch flag read on the host), the plain version of the graph
+    route's control flow, from a fresh start: its 2f after the steps held
+    within 1e-3 of the graph route's and of the exact oracle; it/s, host
+    syncs and K1 / K2 launches per step beside the graph route's. Stored
+    in summary["eager"]."""
+    import torch
+
+    from dpgo_tpu_torch.utils import HostSyncs
+    steps = steps or summary["steps"]
+    solver.syncs = HostSyncs()
+    st = solver.initialize(*init)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = solver.run_steps_eager(st, 0, steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernel_counts()
+    f_end = 2.0 * float(st.fobj.sum())
+    f_exact = float(solver._metrics(st)[0])
+    f_graph = summary["f2_final"]
+    rel = abs(f_graph - f_end) / abs(f_end)
+    rel_oracle = abs(f_graph - summary["f2_exact"]) / abs(summary["f2_exact"])
+    out = {"steps": steps, "it_s": steps / secs,
+           "host_syncs_per_step": solver.syncs.count / steps,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "f2_final": f_end, "f2_exact": f_exact,
+           "graph_vs_eager_rel": rel, "graph_vs_oracle_rel": rel_oracle}
+    g = summary["launches_per_step"]
+    print(f"{name} routes [{card}]: graph {summary['it_s']:.2f} it/s at "
+          f"{summary['host_syncs_per_step']:.2f} host syncs/step, K1 "
+          f"{g['stpcg'] + g['stpcg_d2']:.2f} K2 "
+          f"{g['polar_so3'] + g['polar_so3_f64']:.2f} launches/step; eager "
+          f"{out['it_s']:.2f} it/s at {out['host_syncs_per_step']:.2f} host "
+          f"syncs/step, K1 {out['launches_per_step']['stpcg'] + out['launches_per_step']['stpcg_d2']:.2f} "
+          f"K2 {out['launches_per_step']['polar_so3'] + out['launches_per_step']['polar_so3_f64']:.2f} "
+          f"launches/step; 2f after {steps} steps graph {f_graph:.6f}, "
+          f"eager {f_end:.6f} (relative {rel:.3e}), exact oracle at the "
+          f"graph route's end {summary['f2_exact']:.6f} ({rel_oracle:.3e})")
+    check(rel <= 1e-3, f"{name}: graph and eager routes end {rel} apart in "
+          "2f")
+    check(rel_oracle <= 1e-3 and abs(f_end - f_exact) <= 1e-3 * abs(f_exact),
+          f"{name}: a route's 2f is off the exact oracle")
+    summary["eager"] = out
+    return out
 
 
 def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
@@ -1353,10 +1543,12 @@ def phase_segment_choices(solver, init, card, steps=25):
     st0, k0 = solver.run_steps(solver.initialize(*init), 0, 20)
 
     def timed():
+        # The host-read route: a captured step would not see the methods
+        # swapped in below.
         solver.syncs = HostSyncs()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st, _ = solver.run_steps(st0, k0, steps)
+        st, _ = solver.run_steps_eager(st0, k0, steps)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         return (steps / secs, solver.syncs.count / steps,
@@ -1431,6 +1623,7 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
     paths["rim100k_prox"], launches["rim100k_prox"], st = run_path(
         "rim100k_prox", solver_p, init, ("polar_so3",), card, steps=100,
         fused=False)
+    eager_route("rim100k_prox", solver_p, init, card, paths["rim100k_prox"])
     print(f"rim100k_prox: 2f after 100 steps "
           f"{paths['rim100k_prox']['f2_final']:.2f} (exact "
           f"{paths['rim100k_prox']['f2_exact']:.2f}); the JAX package's "
@@ -1643,8 +1836,8 @@ def sharded_rank(rank, world_size, device, jobs, card):
             # each exchange.
             solver = copy.copy(base)
             solver.halo = run["halo"]
-            if hasattr(solver, "fallbacks"):
-                solver.fallbacks = dict.fromkeys(solver.fallbacks, 0)
+            if hasattr(solver, "reset_fallbacks"):
+                solver.reset_fallbacks()
             steps = run["steps"]
             t0 = time.perf_counter()
             st = solver.initialize(*job["init"])
@@ -2073,6 +2266,15 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    phase_s, marks = {}, [t_start]
+
+    def lap(name):
+        """Seconds since the previous lap, printed and kept."""
+        now = time.perf_counter()
+        phase_s[name] = now - marks[-1]
+        marks.append(now)
+        print(f"chip_smoke phase {name}: {phase_s[name]:.1f} s "
+              f"({now - t_start:.1f} s so far)")
 
     t0 = time.perf_counter()
     _build.load(verbose=True)
@@ -2082,6 +2284,8 @@ def main() -> int:
     k2_100k = phase_polar_so3(np.random.default_rng(SEED + 6), dev, card,
                               n=NUM_NODES * 6400)
     k2_f64 = phase_polar_so3_f64(np.random.default_rng(SEED + 4), dev, card)
+    kcond = phase_graph_cond(np.random.default_rng(SEED + 7), dev, card)
+    lap("kernel phases")
     # The manhattan graph's .g2o file and the CLI's working directory.
     work = tempfile.TemporaryDirectory()
 
@@ -2121,12 +2325,20 @@ def main() -> int:
     k1["rim"] = phase_stpcg("rim", solver.probs, st, tp, card)
     paths["rim"], launches["rim"], st = run_path(
         "rim", solver, init, ("polar_so3", "stpcg"), card)
+    eager_route("rim", solver, init, card, paths["rim"])
+    flops = solver.step_flops(solver.initialize(*init))
+    print(f"rim: DPGOSolver.step_flops at the start {flops / 1e9:.3f} GFLOP "
+          "per step (matrix products and the kernels' counts)")
+    check(flops > 0, "rim: step_flops is not positive")
+    paths["rim"]["step_flops"] = flops
     # The estimate the polish path starts from.
     rim_est = tuple(x.double().cpu().numpy()
                     for x in solver.gather_global(st))
     to_profile = [("rim", solver, init)]
     rim_init = init
     del st
+
+    lap("rim")
 
     # Path 2: 2-D Manhattan world through the EDGE_SE2 reader (K1 at D = 2).
     meas2, t_true, R_true = manhattan_world(
@@ -2155,8 +2367,11 @@ def main() -> int:
           "CG iteration at the far start")
     paths["manhattan"], launches["manhattan"], _ = run_path(
         "manhattan", solver, init, ("stpcg_d2",), card)
+    eager_route("manhattan", solver, init, card, paths["manhattan"])
     to_profile.append(("manhattan", solver, init))
     del st
+
+    lap("manhattan")
 
     # Path 3: rim_synth with outliers, Huber + dynamic rescale (K1 at D = 3
     # on the reweighted Hred, K2).
@@ -2196,18 +2411,23 @@ def main() -> int:
     to_profile.append(("robust", solver, init))
     del st
 
+    lap("robust")
+
     # Path 4: AMM-PGO* on rim_synth from rim's centralized chordal start.
     solver, _ = make_solver(rim, f"star: {DATASET}, DPGOStarSolver "
                             "(AMM-PGO*)", cls=DPGOStarSolver, init=rim_init,
                             opts=MMOptions(accelerated=True))
     paths["star"], launches["star"], _ = run_path(
         "star", solver, rim_init, ("polar_so3", "stpcg"), card)
+    eager_route("star", solver, rim_init, card, paths["star"])
     ratio = paths["star"]["f2_final"] / paths["rim"]["f2_final"]
     print(f"star: final 2f {paths['star']['f2_final']:.6f} against rim's "
           f"AMM-PGO# {paths['rim']['f2_final']:.6f} (ratio {ratio:.6f}; "
           "the two coincide only while no restart triggers)")
     paths["star"]["f2_final_over_rim"] = ratio
     to_profile.append(("star", solver, rim_init))
+
+    lap("star")
 
     # Path 5: MM-PGO on rim_synth from the CLI's default start, DChordal
     # (K2 in its stages 0 and 2 and in the proximal steps, K1 and K2 in the
@@ -2298,6 +2518,8 @@ def main() -> int:
         dchordal_f64_plain_f2=f_64p)
     to_profile.append(("mm_dchordal", solver, dc_init))
 
+    lap("mm_dchordal")
+
     # Path 6: the CLI, in a temporary working directory.
     here = os.getcwd()
     try:
@@ -2345,17 +2567,25 @@ def main() -> int:
         os.chdir(here)
     work.cleanup()
 
+    lap("cli")
+
     # Path 9: PCM, Anderson acceleration and the CLI's --pcm.
     pcm_aa_paths(root, dev, card, make_solver, rim, rim_est, paths,
                  launches, to_profile)
+
+    lap("pcm_aa")
 
     # Path 8: the global polish and the certificate.
     del solver
     polish_certify_paths(root, dev, card, rim, rim_est, paths, launches)
 
+    lap("polish_certify")
+
     # Path 7: node blocks above the dense limit.
     big, big_init = large_block_paths(root, dev, card, make_solver, rim,
                                       paths, launches, to_profile)
+
+    lap("large_blocks")
 
     # torch.profiler runs only now, after every timed run. The paths above
     # the dense limit make thousands of launches per step, and the profiler
@@ -2366,6 +2596,24 @@ def main() -> int:
         at, steps = windows.get(name, (PROFILE_AT, PROFILE_STEPS))
         paths[name]["profile"] = profile_path(name, solver, init, card, at,
                                               steps)
+        if name in EAGER_PATHS:
+            prof_e = profile_path(name, solver, init, card, at, steps,
+                                  eager=True)
+            paths[name]["eager"]["profile"] = prof_e
+            g, e = paths[name], paths[name]["eager"]
+            pg = g["profile"]
+            print(f"{name} graph vs eager route [{card}]: it/s "
+                  f"{g['it_s']:.2f} vs {e['it_s']:.2f}; host syncs/step "
+                  f"{g['host_syncs_per_step']:.2f} vs "
+                  f"{e['host_syncs_per_step']:.2f}; busy share "
+                  f"{pg['busy_share']:.3f} vs {prof_e['busy_share']:.3f}; "
+                  f"device ms/step {pg['device_ms_per_step']:.3f} vs "
+                  f"{prof_e['device_ms_per_step']:.3f}; wall ms/step "
+                  f"{pg['wall_ms_per_step']:.3f} vs "
+                  f"{prof_e['wall_ms_per_step']:.3f}; capture "
+                  f"{g['graph']['capture_s']:.2f} s (+ warm-up "
+                  f"{g['graph']['warmup_s']:.2f} s), capture pools "
+                  f"{g['graph']['pool_bytes'] / 2**20:.1f} MiB")
     # rim's solver stays for the sharded phase's timings, rim100k_prox's for
     # its polish of the split polish's start.
     rim_solver = to_profile[0][1]
@@ -2374,6 +2622,8 @@ def main() -> int:
     paths["mm_dchordal"]["dchordal_profile"] = profile_dchordal(rim, dev,
                                                                 card)
 
+    lap("profiles")
+
     # Path 10: the sharded solvers, held to the single-process histories.
     refs = {name: paths[name] for name in ("rim", "star", "rim100k_prox",
                                            "polish_rim", "polish_rim100k")}
@@ -2381,8 +2631,10 @@ def main() -> int:
                   launches, rim_solver, big_solver)
     del rim_solver, big_solver
 
+    lap("sharded")
+
     def total(kern):
-        return sum(c[kern] for c in launches.values())
+        return sum(c.get(kern, 0) for c in launches.values())
 
     def entry(name, source, replaces, stats):
         return {"name": name, "route": "cuda", "source": source,
@@ -2393,7 +2645,7 @@ def main() -> int:
                 "bound_ms": stats["bound_ms"],
                 "bound_by": stats["bound_by"],
                 "library_ms": stats["library_ms"],
-                "launches_by_path": {p: c[name]
+                "launches_by_path": {p: c.get(name, 0)
                                      for p, c in launches.items()},
                 **{k: v for k, v in stats.items() if k == "shapes"}}
 
@@ -2413,12 +2665,19 @@ def main() -> int:
               "dpgo_tpu/ops/pallas_stpcg.py:140", k1_d3),
         entry("stpcg_d2", "dpgo_tpu_torch/csrc/stpcg.cu",
               "dpgo_tpu/ops/pallas_stpcg.py:140", k1_d2),
+        # Not a port of a Pallas kernel: the flag kernel of the captured
+        # step's conditional nodes, the device-side lax.cond / while_loop
+        # of the JAX package's one-dispatch step.
+        entry("graph_cond", "dpgo_tpu_torch/csrc/graph_cond.cu",
+              "dpgo_tpu/driver.py:234", kcond),
     ]
     for p in paths.values():
         p.pop("f2_history", None)
     secs = time.perf_counter() - t_start
-    print(f"chip_smoke: whole run {secs:.1f} s [{card}]")
-    print(json.dumps({"paths": paths, "k1_phases": k1, "seconds": secs}))
+    print(f"chip_smoke: whole run {secs:.1f} s [{card}]; phases (s) "
+          + ", ".join(f"{n} {t:.1f}" for n, t in phase_s.items()))
+    print(json.dumps({"paths": paths, "k1_phases": k1, "seconds": secs,
+                      "phase_seconds": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

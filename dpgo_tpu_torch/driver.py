@@ -4,11 +4,25 @@ accelerated MM (`MMOptions(scheme="aa")`), DPGOStarSolver AMM-PGO*.
 
 Single-process simulation: the node axis is a batch dimension;
 communication is a gather on the stacked node states. One solver iteration
-= iterate -> communicate -> update. The step runs eagerly on the device;
-the iterate's loop and branch flags are read on the host (`syncs`).
+= iterate -> communicate -> update.
+
+Two routes for the same step (utils.py, "control flow"):
+
+- the graph route, `run_steps` / `run_steps_history` on a CUDA card: the
+  step is captured once as a CUDA graph (`_StepGraph`) whose branches and
+  bounded loops are conditional nodes, and replayed once per iteration;
+  between a call's start and its end the host reads nothing (the JAX
+  package's one-dispatch `lax.scan`, dpgo_tpu/driver.py::_multi_step_impl);
+- the host-read route, `run_steps_eager` / `run_steps_history_eager` (and
+  `run_steps` on the CPU): the step runs eagerly and its loop and branch
+  flags are read on the host (`syncs`): the plain version of the control
+  flow.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -28,7 +42,8 @@ from dpgo_tpu_torch.solvers import polish as polish_mod
 from dpgo_tpu_torch.solvers import star as star_mod
 from dpgo_tpu_torch.solvers.mm import MMOptions, MMState, init_state
 from dpgo_tpu_torch.solvers.tnt import tnt_one
-from dpgo_tpu_torch.utils import HostSyncs, resolve_device
+from dpgo_tpu_torch.utils import (DeviceCounters, HostSyncs, _copy_into,
+                                  flatten, resolve_device, route)
 
 
 def communicate(st: MMState, halo_owner, halo_lpose, halo_dc=None) -> MMState:
@@ -104,6 +119,9 @@ class DPGOSolver:
         # update builds the reweighted problems once per step and the next
         # iterate runs on them.
         self._reweighted = (None, self.probs)
+        # The captured step of the graph route (_StepGraph), made at the
+        # first run_steps on the card.
+        self._graph = None
 
     # ------------------------------------------------------------ hooks
     # The single-process solver holds every node. The sharded solvers
@@ -147,6 +165,7 @@ class DPGOSolver:
         np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
         c = np.asarray(c, np_dtype).astype(np.float64)
         self._c = c
+        self._c_dev = torch.as_tensor(c, dtype=self.dtype, device=self.device)
         self.halo_dc = torch.as_tensor(
             c[self.mg.halo_owner] - c[:, None, :], dtype=self.dtype,
             device=self.device)
@@ -179,8 +198,7 @@ class DPGOSolver:
         local gauge offsets)."""
         t = st.Z.t[self.node_of, self.local_of]
         if self._c is not None:
-            c = torch.as_tensor(self._c, dtype=self.dtype, device=self.device)
-            t = t + c[self.node_of]
+            t = t + self._c_dev[self.node_of]
         R = st.Z.R[self.node_of, self.local_of]
         return t, R
 
@@ -211,17 +229,20 @@ class DPGOSolver:
         st = init_state(self.probs, self._start(t, R, dist_init), self.opts)
         st = st.replace(Z=self._exchange_halos(st.Z))
         st = st.replace(Z_prev=st.Z)
-        return self._update(st, 0, first=True)
+        st, probs = self._update(st, 0, first=True)
+        self._reweighted = (st.scale_w, probs)
+        return st
 
     # ----------------------------------------------------------- stepping
 
-    def _update(self, st: MMState, k: int, first: bool) -> MMState:
+    def _update(self, st: MMState, k, first: bool):
         """Dynamic-rescale trigger, then the update on the problems
-        reweighted by the new weights (the base problems when static)."""
+        reweighted by the new weights (the base problems when static);
+        returns (state, those problems: the next iterate runs on them)."""
         st = mm_mod.rescale(self.probs, st, self.opts)
         probs = mm_mod.reweighted_problems(self.probs, st, self.opts)
-        self._reweighted = (st.scale_w, probs)
-        return mm_mod.update_state(probs, st, self.opts, k, first=first)
+        return mm_mod.update_state(probs, st, self.opts, k,
+                                   first=first), probs
 
     def problems(self, st: MMState):
         """The problems the next iterate runs on: the base problems, or
@@ -232,27 +253,34 @@ class DPGOSolver:
             return probs
         return mm_mod.reweighted_problems(self.probs, st, self.opts)
 
-    def _step(self, st: MMState, k: int) -> MMState:
+    def _advance(self, probs: NodeProblem, st: MMState, k):
+        """One step (iterate -> communicate -> update) whose iterate runs on
+        `probs`; returns (state, the problems the next iterate runs on).
+        `k`: a Python int, or on the graph route the device counter."""
         iterate = {"amm": mm_mod.iterate_amm, "aa": mm_mod.iterate_aa}.get(
             mm_mod.resolve_scheme(self.opts), mm_mod.iterate_mm)
-        st = iterate(self.problems(st), st, self.opts, k, self.syncs)
+        st = iterate(probs, st, self.opts, k, self.syncs)
         st = st.replace(Z=self._exchange_halos(st.Z))
         # Z_prev (stamped inside iterate) is the previous anchor including
         # the halo of the previous round's communicate.
         return self._update(st, k + 1, first=False)
 
-    def run_steps(self, st: MMState, k0: int, num_steps: int):
-        """`num_steps` solver iterations; returns (state, k0 + num_steps)."""
+    def _step(self, st: MMState, k: int) -> MMState:
+        st, probs = self._advance(self.problems(st), st, k)
+        self._reweighted = (st.scale_w, probs)
+        return st
+
+    def run_steps_eager(self, st: MMState, k0: int, num_steps: int):
+        """`num_steps` iterations on the host-read route (each loop and
+        branch flag read on the host, `syncs`); returns (state,
+        k0 + num_steps). The plain version of the graph route's control
+        flow."""
         for i in range(num_steps):
             st = self._step(st, k0 + i)
         return st, k0 + num_steps
 
-    def run_steps_history(self, st: MMState, k0: int, num_steps: int):
-        """`num_steps` iterations recording (2f, 2|grad|) per step on the
-        device: node objectives sum to the global objective (inter edges are
-        split half/half between endpoints) and the global gradient norm is
-        the rms over nodes. Returns (state, k, (f [num_steps],
-        g [num_steps]))."""
+    def run_steps_history_eager(self, st: MMState, k0: int, num_steps: int):
+        """run_steps_history on the host-read route."""
         fs, gs = [], []
         for i in range(num_steps):
             st = self._step(st, k0 + i)
@@ -264,6 +292,98 @@ class DPGOSolver:
         h = self._sum_over_ranks(torch.stack([torch.stack(fs),
                                               torch.stack(gs)]))
         return st, k0 + num_steps, (2.0 * h[0], 2.0 * torch.sqrt(h[1]))
+
+    def run_steps(self, st: MMState, k0: int, num_steps: int):
+        """`num_steps` solver iterations; returns (state, k0 + num_steps).
+        On a CUDA card the graph route: the captured step replayed
+        `num_steps` times, no host read in between (the returned state is a
+        copy, never overwritten by a later call); on the CPU the host-read
+        route (`run_steps_eager`)."""
+        if self.device.type != "cuda":
+            return self.run_steps_eager(st, k0, num_steps)
+        if num_steps <= 0:
+            return st, k0
+        g = self._step_graph(st, k0)
+        for _ in range(num_steps):
+            g.graph.replay()
+        return g.result(), k0 + num_steps
+
+    def run_steps_history(self, st: MMState, k0: int, num_steps: int):
+        """`num_steps` iterations recording (2f, 2|grad|) per step on the
+        device: node objectives sum to the global objective (inter edges are
+        split half/half between endpoints) and the global gradient norm is
+        the rms over nodes. Returns (state, k, (f [num_steps],
+        g [num_steps])). On a CUDA card the graph route (the captured step
+        writes each step's pair at its device step index); on the CPU the
+        host-read route (`run_steps_history_eager`)."""
+        if self.device.type != "cuda":
+            return self.run_steps_history_eager(st, k0, num_steps)
+        if num_steps <= 0:
+            empty = torch.zeros(0, dtype=self.dtype, device=self.device)
+            return st, k0, (empty, empty)
+        g = self._step_graph(st, k0)
+        cap = g.hist.shape[0]
+        chunks = []
+        for i in range(num_steps):
+            g.graph.replay()
+            if (i + 1) % cap == 0 or i + 1 == num_steps:
+                chunks.append(g.hist[:i % cap + 1].clone())
+        h = torch.cat(chunks)
+        return (g.result(), k0 + num_steps,
+                (2.0 * h[:, 0], 2.0 * torch.sqrt(h[:, 1])))
+
+    def _graph_key(self, st) -> tuple:
+        """What a captured step depends on besides the state's values: the
+        problems, options and gauge tensors it reads, the state's
+        shapes."""
+        return (self.probs, self.opts, self.halo_dc, self.edges,
+                tuple((tuple(x.shape), x.dtype) for x in flatten(st)[0]))
+
+    def _step_graph(self, st, k0: int) -> "_StepGraph":
+        """The captured step (captured now when there is none or its key
+        changed), loaded with state `st` at step index k0. A capture that
+        fails raises; there is no fallback to the host-read route."""
+        key = self._graph_key(st)
+        g = self._graph
+        if g is None or not g.matches(key):
+            self._graph = None
+            g = _StepGraph(self, st, k0, key)
+            self._graph = g
+        g.load(self, st, k0)
+        self._reweighted = (None, self.probs)
+        return g
+
+    def graph_stats(self) -> dict | None:
+        """Of the captured step: capture seconds (warm-up included), bytes
+        its two memory pools hold on the card, None before a capture."""
+        g = self._graph
+        return None if g is None else {"capture_s": g.capture_s,
+                                       "warmup_s": g.warmup_s,
+                                       "pool_bytes": g.pool_bytes}
+
+    def step_flops(self, st, k: int = 0) -> int:
+        """Floating-point operations of one solver step from `st`
+        (dpgo_tpu/driver.py::DPGOSolver.step_flops): PyTorch's
+        FlopCounterMode over one step on the host-read route (matrix
+        products; elementwise work is not counted), plus the analytic count
+        of every K1 and K2 launch in it, which the wrappers add to the
+        device counters "stpcg.flops" and "polar_so3.flops" (a ctypes launch
+        is invisible to FlopCounterMode). The state and the solver are left
+        as they were."""
+        from torch.utils.flop_counter import FlopCounterMode
+        names = ("stpcg.flops", "polar_so3.flops")
+        saved = (self.syncs, self._reweighted)
+        snap = DeviceCounters.snapshot()
+        before = sum(DeviceCounters.read(n) for n in names)
+        self.syncs = HostSyncs()
+        try:
+            with route("host"), FlopCounterMode(display=False) as fc:
+                self._step(st, k)
+            kernels = sum(DeviceCounters.read(n) for n in names) - before
+        finally:
+            self.syncs, self._reweighted = saved
+            DeviceCounters.restore(snap)
+        return int(fc.get_total_flops()) + int(kernels)
 
     def _metrics(self, st: MMState):
         """Exact global (2 f, 2 |grad|) at the current own estimates."""
@@ -474,17 +594,28 @@ class DPGOStarSolver(DPGOSolver):
     """AMM-PGO*: per-node accelerated steps with master-gated fallbacks
     using the exact global objective (reference DPGOStar). Runs on the base
     problems (no dynamic rescale). `fallbacks` counts the master fallbacks
-    taken, by name (solvers/star.py FALLBACKS)."""
+    taken, by name (solvers/star.py FALLBACKS), from device counters that
+    the step bumps on either route (reading them waits for the card);
+    `reset_fallbacks` zeroes them."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        self.fallbacks = dict.fromkeys(star_mod.FALLBACKS, 0)
+        self._fired = {n: torch.zeros((), dtype=torch.int64,
+                                      device=self.device)
+                       for n in star_mod.FALLBACKS}
+
+    @property
+    def fallbacks(self) -> dict:
+        return {n: int(t) for n, t in self._fired.items()}
+
+    def reset_fallbacks(self) -> None:
+        for t in self._fired.values():
+            t.zero_()
 
     def _global_f(self, t_own, R_own):
         t = t_own[self.node_of, self.local_of]
         if self._c is not None:
-            c = torch.as_tensor(self._c, dtype=self.dtype, device=self.device)
-            t = t + c[self.node_of]
+            t = t + self._c_dev[self.node_of]
         R = R_own[self.node_of, self.local_of]
         return evaluate_f(self.edges, t, R, self.loss, self.loss_reg)
 
@@ -495,12 +626,130 @@ class DPGOStarSolver(DPGOSolver):
         st = st.replace(Z_prev=st.Z, F=self._global_f(st.Z.t, st.Z.R))
         return star_mod.update_star(self.probs, st, self.opts, first=True)
 
-    def _step(self, st, k: int):
-        st = star_mod.iterate_star(self.probs, st, self.opts, self._global_f,
-                                   k, self.syncs, self.fallbacks,
+    def problems(self, st):
+        return self.probs
+
+    def _advance(self, probs, st, k):
+        st = star_mod.iterate_star(probs, st, self.opts, self._global_f,
+                                   k, self.syncs, self._fired,
                                    reduce=self._sum_over_ranks)
         st = st.replace(Z=self._exchange_halos(st.Z))
-        return star_mod.update_star(self.probs, st, self.opts, first=False)
+        return star_mod.update_star(probs, st, self.opts,
+                                    first=False), probs
+
+    def _step(self, st, k: int):
+        return self._advance(self.probs, st, k)[0]
+
+
+class _StepGraph:
+    """One solver step captured as a CUDA graph: the JAX package's jitted
+    step (dpgo_tpu/driver.py::_step_impl), replayed once per iteration.
+
+    The graph reads the state from static buffers and ends by copying the
+    next state back into them, with the step index `k` (int32) and, under
+    dynamic rescale, the reweighted problems' tensors (the problems the
+    next iterate runs on) carried the same way, so the rescale rebuilds
+    inside the replay. It also writes (sum fobj, sum gradFnorm^2) into the
+    ring `hist` at the device step index `pos`. Its branches and bounded
+    loops are conditional nodes (utils.device_cond / bounded_while on the
+    "capture" route); K1 and K2 launch inside it and bump their device
+    counters at every replay.
+
+    Before the capture, one step on the "warm" route (both branches, one
+    trip per loop, results thrown away, device counters restored) runs
+    every operation once, so that no lazy set-up (the kernel library, K1's
+    occupancy query, cuBLAS handles) happens inside the capture, under
+    torch.cuda.set_sync_debug_mode("error"), so that a host read in the
+    step raises there."""
+
+    HISTORY = 256
+
+    def __init__(self, solver: DPGOSolver, st, k0: int, key: tuple):
+        from dpgo_tpu_torch.ops import graph_nodes
+        dev = solver.device
+        self.key = key
+        leaves, self._rebuild = flatten(st)
+        self.static = [x.clone() for x in leaves]
+        probs = solver.problems(st)
+        base = solver.probs
+        self.dyn = [f.name for f in dataclasses.fields(probs)
+                    if isinstance(getattr(probs, f.name), torch.Tensor)
+                    and getattr(probs, f.name) is not getattr(base, f.name)]
+        self.static_dyn = [getattr(probs, n).clone() for n in self.dyn]
+        # Held for the graph's life: a NodeProblem made here also makes its
+        # index tensors (__post_init__), which the graph reads.
+        self.static_probs = static_probs = (dataclasses.replace(
+            probs, **dict(zip(self.dyn, self.static_dyn))) if self.dyn
+            else probs)
+        self.k = torch.full((), k0, dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        self.hist = torch.zeros((self.HISTORY, 2), dtype=solver.dtype,
+                                device=dev)
+        state = self._rebuild(self.static)
+
+        t0 = time.perf_counter()
+        graph_nodes.warm_streams(dev)
+        snap = DeviceCounters.snapshot()
+        # A step that reads the card on the host cannot be captured: the
+        # warm-up raises at that read (sync debug mode), before the capture
+        # begins, so a failed capture never leaves one half made.
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with route("warm"):
+                solver._advance(static_probs, state, self.k)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize(dev)
+        DeviceCounters.restore(snap)
+        self.warmup_s = time.perf_counter() - t0
+
+        # (torch.cuda.graph empties the cache on entry too.)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        with graph_nodes.capture(self.graph, dev, pool) as body_pool, \
+                route("capture"):
+            nxt, probs2 = solver._advance(static_probs, state, self.k)
+            pair = torch.stack([torch.sum(nxt.fobj),
+                                torch.sum(nxt.gradFnorm * nxt.gradFnorm)])
+            self.hist.index_copy_(
+                0, torch.remainder(self.pos, self.HISTORY).reshape(1),
+                pair[None].to(self.hist.dtype))
+            self.pos.add_(1)
+            _copy_into(self.static + self.static_dyn,
+                       flatten(nxt)[0] + [getattr(probs2, n)
+                                          for n in self.dyn])
+            self.k.add_(1)
+        torch.cuda.synchronize(dev)
+        self.body_pool = body_pool
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def matches(self, key: tuple) -> bool:
+        a, b = self.key, key
+        return (a[0] is b[0] and a[1] == b[1] and a[2] is b[2]
+                and a[3] is b[3] and a[4] == b[4])
+
+    def load(self, solver: DPGOSolver, st, k0: int) -> None:
+        """Copy state `st` (and its problems under dynamic rescale) into the
+        static buffers, the step index to k0 and the history position to
+        0: device copies, no host read."""
+        for b, x in zip(self.static, flatten(st)[0]):
+            if b is not x:
+                b.copy_(x)
+        if self.dyn:
+            probs = solver.problems(st)
+            for b, n in zip(self.static_dyn, self.dyn):
+                b.copy_(getattr(probs, n))
+        self.k.fill_(k0)
+        self.pos.zero_()
+
+    def result(self):
+        """A copy of the state in the static buffers."""
+        return self._rebuild([x.clone() for x in self.static])
 
 
 def communicate_star(Z: NodeState, halo_owner, halo_lpose,

@@ -44,6 +44,11 @@ _SIGNATURES = {
     "dpgo_stpcg": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
     # (nd, d, cluster, int* resident clusters)
     "dpgo_stpcg_clusters": [_I, _I, _I, _P],
+    # Conditional graph nodes (graph_nodes.py): (parent stream, child
+    # stream, flag, kind, handle out); (handle, flag, stream); (child stream)
+    "dpgo_cond_begin": [_P, _P, _P, _I, _P],
+    "dpgo_cond_set": [ctypes.c_ulonglong, _P, _P],
+    "dpgo_cond_end": [_P],
 }
 
 

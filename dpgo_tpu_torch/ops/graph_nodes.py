@@ -1,0 +1,144 @@
+"""Conditional nodes of a CUDA graph under capture (`csrc/graph_cond.cu`):
+the IF and WHILE nodes that `utils.device_cond` and `utils.bounded_while`
+record on the graph route.
+
+PyTorch's `torch.cuda.CUDAGraph` captures straight-line streams only on the
+card's PyTorch (`begin_capture_to_if_node` arrived in later releases), so the
+nodes are made here with the CUDA runtime, through the package's plain-C
+library. `conditional(flag, kind)` is a context manager used while a
+`torch.cuda.graph` capture is underway: it appends the node after the work
+captured so far, makes a child stream PyTorch's current stream, so that the
+body's operations (kernel launches, cuBLAS calls, copies) are recorded into
+the node's body graph, and ends that capture on exit. A WHILE body calls
+`again(handle, flag)` last: the body runs again while `flag` is set.
+
+The bodies' allocations come from a private pool of their own: `capture`
+asks the caching allocator to route the allocations of this thread that the
+capture's own pool does not take (it matches only the stream the capture
+began on) into a second pool, kept beside the graph. Nesting depth d uses child
+stream d, so sibling bodies at one depth share a stream and its cached
+blocks; bodies run in graph order, so a block freed by one body is safe for
+the next.
+
+Nothing here runs at import time; the library is loaded at the first node.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+
+import torch
+
+from dpgo_tpu_torch.ops import _build
+from dpgo_tpu_torch.utils import DeviceCounters
+
+IF, WHILE = 0, 1
+
+
+class _Capture:
+    """The capture underway in this process (one at a time): its device and
+    pool, and the child streams by nesting depth."""
+
+    active = None   # (device index, pool handle) while capturing
+    depth = 0
+    streams: dict = {}   # (device index, depth) -> torch.cuda.Stream
+
+
+def child_stream(index: int, depth: int) -> torch.cuda.Stream:
+    """The child stream of nesting depth `depth` on device `index`, made
+    (outside any capture) on first use."""
+    key = (index, depth)
+    s = _Capture.streams.get(key)
+    if s is None:
+        s = torch.cuda.Stream(device=index)
+        _Capture.streams[key] = s
+    return s
+
+
+def warm_streams(device: torch.device, depth: int = 8) -> None:
+    """Make the child streams of depths 1..depth and let each run one cuBLAS
+    product, so that the library's per-stream handles and workspaces exist
+    before a capture (none is made inside one)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    # The flag kernel's launch counter, made before any capture.
+    DeviceCounters.bump("graph_cond", torch.device("cuda", index), 0)
+    a = torch.ones(8, 8, device=device)
+    cur = torch.cuda.current_stream(device)
+    for d in range(1, depth + 1):
+        s = child_stream(index, d)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            for dt in (torch.float32, torch.float64):
+                x = a.to(dt)
+                (x @ x).sum()
+                torch.bmm(x[None], x[None])
+        cur.wait_stream(s)
+    torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def capture(graph: torch.cuda.CUDAGraph, device: torch.device, pool):
+    """`torch.cuda.graph(graph, pool=pool)` on `device`. The allocations of
+    the conditional bodies (on child streams, which the capture's own pool
+    routing does not match) go to a second private pool, yielded: keep it
+    as long as the graph."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if _Capture.active is not None:
+        raise RuntimeError("a graph capture is already underway")
+    body_pool = torch.cuda.MemPool()
+    with torch.cuda.device(index), torch.cuda.graph(graph, pool=pool):
+        torch._C._cuda_beginAllocateCurrentThreadToPool(index, body_pool.id)
+        _Capture.active = (index, pool)
+        try:
+            yield body_pool
+        finally:
+            _Capture.active = None
+            _Capture.depth = 0
+            torch._C._cuda_endAllocateToPool(index, body_pool.id)
+            torch._C._cuda_releasePool(index, body_pool.id)
+
+
+@contextlib.contextmanager
+def conditional(flag: torch.Tensor, kind: int):
+    """Record an IF (`kind=IF`) or WHILE (`kind=WHILE`) node on `flag`, a
+    0-d bool tensor on the card, after the work captured so far on the
+    current stream; the block's operations form the node's body. Yields the
+    node's handle (for `again`)."""
+    if _Capture.active is None:
+        raise RuntimeError("conditional nodes exist only inside capture()")
+    if flag.dtype != torch.bool or flag.numel() != 1 or not flag.is_cuda:
+        raise ValueError("a conditional node takes a one-element bool tensor "
+                         f"on the card, got {flag.dtype} {tuple(flag.shape)} "
+                         f"on {flag.device}")
+    flag = flag.reshape(()).contiguous()
+    index = _Capture.active[0]
+    parent = torch.cuda.current_stream(index)
+    _Capture.depth += 1
+    child = child_stream(index, _Capture.depth)
+    lib = _build.load()
+    handle = ctypes.c_ulonglong()
+    _build.check(lib.dpgo_cond_begin(parent.cuda_stream, child.cuda_stream,
+                                     flag.data_ptr(), kind,
+                                     ctypes.byref(handle)),
+                 "graph conditional node")
+    DeviceCounters.bump("graph_cond", flag.device)
+    try:
+        with torch.cuda.stream(child):
+            yield handle.value
+    finally:
+        _Capture.depth -= 1
+        _build.check(lib.dpgo_cond_end(child.cuda_stream),
+                     "graph conditional body")
+
+
+def again(handle: int, flag: torch.Tensor) -> None:
+    """Last operation of a WHILE body: the body runs again while `flag`
+    (0-d bool on the card) is set."""
+    flag = flag.reshape(()).contiguous()
+    stream = torch.cuda.current_stream(flag.device).cuda_stream
+    _build.check(_build.load().dpgo_cond_set(handle, flag.data_ptr(), stream),
+                 "graph conditional set")
+    DeviceCounters.bump("graph_cond", flag.device)

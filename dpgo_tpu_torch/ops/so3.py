@@ -53,8 +53,9 @@ def _inv_T(X, eps):
 def polar_so3(A: torch.Tensor) -> torch.Tensor:
     """Project [..., 3, 3] onto SO(3) (Frobenius-closest, det fix included)."""
     dtype = A.dtype
-    eps = torch.tensor(1e-30 if dtype == torch.float64 else 1e-18,
-                       dtype=dtype, device=A.device)
+    # A fill on the device, not a copy from the host (capturable).
+    eps = torch.full((), 1e-30 if dtype == torch.float64 else 1e-18,
+                     dtype=dtype, device=A.device)
     eye = torch.eye(3, dtype=dtype, device=A.device)
 
     # Normalize scale; degenerate (zero) input maps to identity.

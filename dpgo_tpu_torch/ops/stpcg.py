@@ -24,7 +24,7 @@ from typing import Callable
 
 import torch
 
-from dpgo_tpu_torch.utils import HostSyncs
+from dpgo_tpu_torch.utils import HostSyncs, bounded_while
 
 
 def _bshape(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -108,13 +108,12 @@ def stpcg_loop(grad, hess_vp: Callable, precon: Callable,
     if active is not None:
         done = done | ~active
     norm_out = torch.zeros_like(r0v0)
-    trips = 0
 
-    while True:
-        running = ~done & (k < max_iters)
-        if not syncs.flag(running.any()):
-            break
-        trips += 1
+    def running_lanes(c):
+        return ~c[9] & (c[8] < max_iters)
+
+    def trip(c, running):
+        s, Hs, r, v, p, sk_M_pk, sk_M_2, pk_M_2, k, done, norm_out = c
         Hp = hess_vp(p)
         kappa_k, pp, HpHp, pr, rv = inner(((p, Hp), (p, p), (Hp, Hp),
                                            (p, r), (r, v)))
@@ -157,19 +156,20 @@ def stpcg_loop(grad, hess_vp: Callable, precon: Callable,
 
         # A lane that is not running keeps its state (vmapped while_loop).
         go = running & ~exit_b
-        s = sel(running, sel(exit_b, s_exit, s_new), s)
-        Hs = sel(running, sel(exit_b, Hs_exit, Hs_new), Hs)
-        r = sel(go, r_new, r)
-        v = sel(go, v_new, v)
-        p = sel(go, p_new, p)
-        sk_M_pk = torch.where(go, sk_M_pk_new, sk_M_pk)
-        sk_M_2 = torch.where(go, sk1_M_2, sk_M_2)
-        pk_M_2 = torch.where(go, pk_M_2_new, pk_M_2)
-        k = k + running.to(torch.int32)
-        done = torch.where(running, exit_b | interior_done, done)
-        norm_out = torch.where(running & exit_b, Delta, norm_out)
+        return (sel(running, sel(exit_b, s_exit, s_new), s),
+                sel(running, sel(exit_b, Hs_exit, Hs_new), Hs),
+                sel(go, r_new, r), sel(go, v_new, v), sel(go, p_new, p),
+                torch.where(go, sk_M_pk_new, sk_M_pk),
+                torch.where(go, sk1_M_2, sk_M_2),
+                torch.where(go, pk_M_2_new, pk_M_2),
+                k + running.to(torch.int32),
+                torch.where(running, exit_b | interior_done, done),
+                torch.where(running & exit_b, Delta, norm_out))
 
-    syncs.note("stpcg", trips)
+    (s, Hs, _, _, _, _, sk_M_2, _, k, _, norm_out) = bounded_while(
+        max_iters, running_lanes, trip,
+        (s, Hs, r, v, p, sk_M_pk, sk_M_2, pk_M_2, k, done, norm_out),
+        syncs=syncs, name="stpcg")
     norm = torch.where(norm_out > 0, norm_out, torch.sqrt(sk_M_2))
     return s, Hs, norm, k
 

@@ -26,15 +26,19 @@ import torch
 
 from dpgo_tpu_torch.ops import _build
 from dpgo_tpu_torch.ops.stpcg import stpcg_fused_reference
-from dpgo_tpu_torch.utils import HostSyncs
+from dpgo_tpu_torch.utils import DeviceCounters, HostSyncs
 
 DIMS = (2, 3)  # the kernel's instantiations (pose block d x d)
 CLUSTER_SIZES = (1, 2, 4, 8)  # CTAs per node; 8 is the portable maximum
+# The DeviceCounters name of each instantiation.
+COUNTERS = {2: "stpcg_d2", 3: "stpcg"}
 
 
 class Launches:
     """Kernel launch counters (plain integers, bumped once per launch):
-    `count` over all launches, `by_d` per instantiation."""
+    `count` over all launches, `by_d` per instantiation. A launch recorded
+    into a CUDA graph counts once here, at capture; the device counters
+    (`utils.DeviceCounters`, names in COUNTERS) count every replay."""
 
     count = 0
     by_d = {d: 0 for d in DIMS}
@@ -168,6 +172,9 @@ def stpcg_fused(H, P, g, v0, Q, S, Delta, active, *, max_iters: int,
             h.data_ptr(), Hh.data_ptr(), norm.data_ptr(), k.data_ptr(), N,
             nd, d, C, int(max_iters), float(kappa_fgr), float(theta), stream)
     _build.check(err, "stpcg")
+    DeviceCounters.bump(COUNTERS[d], dev)
+    # Per CG iteration of a node one Hred and one P pass, 2 nd^2 d each.
+    DeviceCounters.bump("stpcg.flops", dev, k.sum() * (4 * nd * nd * d))
     Launches.count += 1
     Launches.by_d[d] += 1
     return h, Hh, norm, k

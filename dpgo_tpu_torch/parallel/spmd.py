@@ -388,6 +388,18 @@ class _Sharded:
     def pack_global(self, t: np.ndarray, R: np.ndarray) -> NodeState:
         return self._mine(super().pack_global(t, R))
 
+    # ------------------------------------------------------- stepping
+
+    # The sharded solvers keep the host-read route on every device: gloo's
+    # collectives cannot be recorded into a CUDA graph (NCCL's can: the
+    # graph route over NCCL is a later step, ROADMAP).
+
+    def run_steps(self, st, k0: int, num_steps: int):
+        return self.run_steps_eager(st, k0, num_steps)
+
+    def run_steps_history(self, st, k0: int, num_steps: int):
+        return self.run_steps_history_eager(st, k0, num_steps)
+
     # ------------------------------------------------- collective hooks
 
     def _exchange_halos(self, Z: NodeState) -> NodeState:

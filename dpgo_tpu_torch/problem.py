@@ -52,7 +52,7 @@ from dpgo_tpu_torch.manifold import (proj_tangent, project_sod,
                                      sym_block_diag_product)
 from dpgo_tpu_torch.ops import stpcg_cuda
 from dpgo_tpu_torch.ops.stpcg import sel
-from dpgo_tpu_torch.utils import HostSyncs, resolve_device
+from dpgo_tpu_torch.utils import HostSyncs, bounded_while, resolve_device
 
 
 def _nsum(x: torch.Tensor) -> torch.Tensor:
@@ -563,8 +563,9 @@ class NodeProblem:
         [N, d]); a node iterates while any of its columns has |r|^2 above
         tol^2 |rhs|^2 and keeps its state once none has, and the loop ends
         when no node iterates or at `seg_cg_iters` trips: what the JAX
-        package's vmapped while_loop computes. The continuation flag is
-        read on the host once per trip (`syncs`). The null response is
+        package's vmapped while_loop computes (`utils.bounded_while`: on
+        the host route the continuation flag is read once per trip,
+        counted in `syncs`). The null response is
         dropped, as in the dense split inverse (solve_mG00 adds it).
 
         `x0` warm-starts the iteration; convergence is measured against
@@ -580,11 +581,13 @@ class NodeProblem:
         z = self._precondition_t_seg(r)
         p, rz = z, (r * z).sum(1)
         tol2 = self.seg_cg_tol * self.seg_cg_tol
-        trips = 0
-        while trips < self.seg_cg_iters:
-            running = ((r * r).sum(1) > tol2 * rr_ref).any(1)
-            if not syncs.flag(running.any()):
-                break
+
+        def running_lanes(c):
+            r = c[1]
+            return ((r * r).sum(1) > tol2 * rr_ref).any(1)
+
+        def trip(c, running):
+            x, r, p, rz = c
             Ap = self._deflate_null(self.mG00_matvec(p))
             pAp = (p * Ap).sum(1)
             alpha = torch.where(pAp > 0, rz / torch.where(pAp > 0, pAp, 1.0),
@@ -596,11 +599,11 @@ class NodeProblem:
             beta = torch.where(rz > 0, rz_new / torch.where(rz > 0, rz, 1.0),
                                0.0)
             p_new = z_new + beta[:, None, :] * p
-            x, r, p = (sel(running, x_new, x), sel(running, r_new, r),
-                       sel(running, p_new, p))
-            rz = sel(running, rz_new, rz)
-            trips += 1
-        syncs.note("seg_cg", trips)
+            return (sel(running, x_new, x), sel(running, r_new, r),
+                    sel(running, p_new, p), sel(running, rz_new, rz))
+
+        x, _, _, _ = bounded_while(self.seg_cg_iters, running_lanes, trip,
+                                   (x, r, p, rz), syncs=syncs, name="seg_cg")
         return x
 
     def precondition_R_seg(self, V):
@@ -879,7 +882,7 @@ def with_weights(base: NodeProblem, w_bar: torch.Tensor) -> NodeProblem:
     UtSU = base.SU[b, base.ipose]  # [N, k, k]
     k = D.shape[1]
     A = torch.eye(k, dtype=dt, device=dev) + UtSU * D[:, None, :]
-    wood_C = D[..., None] * torch.linalg.inv(A)
+    wood_C = D[..., None] * torch.linalg.inv_ex(A)[0]
     repl.update(wood_C=wood_C)
     if not base.dense:
         return dataclasses.replace(base, **repl)

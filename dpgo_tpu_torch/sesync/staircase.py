@@ -34,7 +34,7 @@ from dpgo_tpu_torch.io.g2o import Measurements
 from dpgo_tpu_torch.sesync.problem import (build_sesync_explicit,
                                            build_sesync_problem)
 from dpgo_tpu_torch.solvers.tnt import TNTParams, tnt_one
-from dpgo_tpu_torch.utils import HostSyncs
+from dpgo_tpu_torch.utils import HostSyncs, resolve_device
 
 
 @dataclasses.dataclass
@@ -109,7 +109,9 @@ def min_eig_lobpcg(apply_S, nd, seed: int, dtype, block=4, iters=200,
                    resid_tol=None, max_iters=20000, deflate=None,
                    precon=None, device=None, syncs: HostSyncs | None = None):
     """Smallest eigenpair of a symmetric operator via basic LOBPCG (B=I, no
-    constraints), on `device` (the default: `deflate`'s, else the CPU).
+    constraints), on `device` (the default: `deflate`'s when it is a
+    tensor, else the CUDA card, through `utils.resolve_device`; on a host
+    without one, pass `device="cpu"`).
 
     Returns (theta, v, resid) (0-d tensors and the vector) with
     resid = |S v - theta v|. The Ritz value converges to lambda_min FROM
@@ -133,9 +135,9 @@ def min_eig_lobpcg(apply_S, nd, seed: int, dtype, block=4, iters=200,
     Rayleigh-Ritz pass), and the final pair is taken from one exact
     operator application, so the returned residual is honest."""
     syncs = syncs or HostSyncs()
-    if device is None:
-        device = (deflate.device if isinstance(deflate, torch.Tensor)
-                  else torch.device("cpu"))
+    if device is None and isinstance(deflate, torch.Tensor):
+        device = deflate.device
+    device = resolve_device(device)
 
     def ortho(X):
         return torch.linalg.qr(X)[0]

@@ -25,8 +25,9 @@ preconditioners.
   (`scheme="aa"`; no reference analog).
 
 Control flow: where the JAX package branches on the device (`lax.cond` on
-`jnp.any(mask)`), this port reads the flag on the host through a
-`HostSyncs` counter and skips the branch in Python.
+`jnp.any(mask)`), this port calls `utils.device_cond`: on the host route it
+reads the flag through a `HostSyncs` counter and skips the branch in
+Python, on the graph route the branch is an IF node of the captured step.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from dpgo_tpu_torch.ops.stpcg import sel, stpcg_fused_reference
 from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
 from dpgo_tpu_torch.problem import NodeProblem, NodeState, _nsum, with_weights
 from dpgo_tpu_torch.solvers.tnt import TNTModel, TNTParams, tnt_generic
-from dpgo_tpu_torch.utils import HostSyncs
+from dpgo_tpu_torch.utils import HostSyncs, device_cond
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,7 +254,8 @@ def update_state(probs: NodeProblem, st: MMState, opts: MMOptions,
                  k: int, first: bool) -> MMState:
     """DPGOHash::update: recompute surrogate anchors at the new Z and run
     the Nesterov/restart bookkeeping. `k` is the iteration index (0 at
-    `first`).
+    `first`): a Python int, or on the graph route a 0-d int32 tensor on the
+    device that the captured step advances.
 
     Under dynamic rescale `st` has been through `rescale` and `probs` are
     the problems reweighted by its weights (`reweighted_problems`), the
@@ -308,9 +310,12 @@ def update_state(probs: NodeProblem, st: MMState, opts: MMOptions,
             num_osc = st.num_osc + (osc_buf[:, -1] != osc_buf[:, -2]).to(
                 torch.int32)
             # -= osc[k-P] != osc[k-P-1] once k > P
-            if k > opts.oscillation_cnt_period:
-                num_osc = num_osc - (osc_buf[:, 1] != osc_buf[:, 0]).to(
-                    torch.int32)
+            late = k > opts.oscillation_cnt_period
+            left = num_osc - (osc_buf[:, 1] != osc_buf[:, 0]).to(torch.int32)
+            if isinstance(late, torch.Tensor):
+                num_osc = torch.where(late, left, num_osc)
+            elif late:
+                num_osc = left
 
         Fk0 = Fk0 * (1 - opts.eta0) + fobj * opts.eta0
         Fk1 = torch.maximum(fobj, Fk1 * (1 - opts.eta1) + fobj * opts.eta1)
@@ -550,16 +555,20 @@ def _tnt_batch(probs: NodeProblem, t0, R0, g_t, g_R, params: TNTParams,
 def _masked_tnt(probs, t0, R0, g_t, g_R, mask, params: TNTParams,
                 fallback_G, syncs: HostSyncs, t_anchor, anchor,
                 precon: str = "dense"):
-    """Run batched TNT only if any node needs it; select per node by mask.
-    Returns (t, R, G value at result)."""
+    """Run batched TNT only if any node needs it (`device_cond`); select
+    per node by mask. Returns (t, R, G value at result)."""
     if params.max_iterations <= 0 or params.max_iterations_accepted <= 0:
         return t0, R0, fallback_G
-    if not syncs.flag(mask.any()):
-        return t0, R0, fallback_G
-    tn, Rn, fx = _tnt_batch(probs, t0, R0, g_t, g_R, params, t_anchor,
-                            anchor, precon=precon, syncs=syncs, lanes=mask)
-    return sel(mask, tn, t0), sel(mask, Rn, R0), torch.where(mask, fx,
-                                                             fallback_G)
+
+    def refine():
+        tn, Rn, fx = _tnt_batch(probs, t0, R0, g_t, g_R, params, t_anchor,
+                                anchor, precon=precon, syncs=syncs,
+                                lanes=mask)
+        return (sel(mask, tn, t0), sel(mask, Rn, R0),
+                torch.where(mask, fx, fallback_G))
+
+    return device_cond(mask.any(), refine, lambda: (t0, R0, fallback_G),
+                       syncs=syncs)
 
 
 def refine_probe(probs: NodeProblem, st: MMState, opts: MMOptions,
@@ -691,8 +700,9 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
         Gk = _eval_G_batch(probs, st, Xak_t, Xak_R, zres)
 
     # Exceptional-path cascade (DPGOHash.cpp:386-441) in three stages (retry
-    # / restart / phi-test), each skipped when no node fires it. A skipped
-    # stage equals the fired stage with all-false flags.
+    # / restart / phi-test), each skipped when no node fires it
+    # (`device_cond`). A skipped stage equals the fired stage with all-false
+    # flags.
     need_retry = Gkh > minG
     hard = Gk > st.Fk0
     soft = ((Gk > st.Fk1) & (st.hits0 >= opts.max_soft_restart_hits0)) | \
@@ -700,16 +710,16 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
     restart = hard | soft
 
     # Retry the un-extrapolated proximal if Gkh is insufficient.
-    Xakh_t, Xakh_R, Gkh2 = th_t, th_R, Gkh
-    if syncs.flag(need_retry.any()):
+    def retry():
         tp_t, tp_R = probs.proximal(st.Z, (st.Df_t, st.Df_R))
         Gkp = _eval_G_batch(probs, st, tp_t, tp_R, zres)
-        Xakh_t = sel(need_retry, tp_t, th_t)
-        Xakh_R = sel(need_retry, tp_R, th_R)
-        Gkh2 = torch.where(need_retry, Gkp, Gkh)
+        return (sel(need_retry, tp_R, th_R),
+                torch.where(need_retry, Gkp, Gkh))
 
-    Xk_t2, Xk_R2, Gk2 = Xak_t, Xak_R, Gk
-    if syncs.flag(restart.any()):
+    Xakh_R, Gkh2 = device_cond(need_retry.any(), retry,
+                               lambda: (th_R, Gkh), syncs=syncs)
+
+    def restarted():
         # Restart candidate: Xakh if good enough, else the un-extrapolated
         # proximal; translations from the non-extrapolated g.
         tp_t, tp_R = probs.proximal(st.Z, (st.Df_t, st.Df_R))
@@ -724,23 +734,28 @@ def iterate_amm(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
             r_G, syncs, t_anchor=st.Z.t, anchor=(st.Z.t, st.Z.R, st.fobj),
             precon=precon_kind)
         Gk_restart = _eval_G_batch(probs, st, rt_t, rt_R, zres)
-        Xk_t2 = sel(restart, rt_t, Xak_t)
-        Xk_R2 = sel(restart, rt_R, Xak_R)
-        Gk2 = torch.where(restart, Gk_restart, Gk)
+        return (sel(restart, rt_t, Xak_t), sel(restart, rt_R, Xak_R),
+                torch.where(restart, Gk_restart, Gk))
+
+    Xk_t2, Xk_R2, Gk2 = device_cond(restart.any(), restarted,
+                                    lambda: (Xak_t, Xak_R, Gk), syncs=syncs)
 
     # phi-test: fall back to the proximal iterate Xakh if the refined step
     # made insufficient progress relative to it.
     use_h = (st.Fk0 - Gk2) < opts.phi * (st.Fk0 - Gkh2)
-    Xak_t2, Xak_R2, Gk_f = Xk_t2, Xk_R2, Gk2
-    if syncs.flag(use_h.any()):
+
+    def phi_fallback():
         g_sel_t = sel(restart, st.g_t, g_t_ex)
         t_sel = sel(restart, st.Z.t, Y.t)
         phi_t = probs.recover_translations(Xakh_R, g_sel_t, t_sel, syncs)
-        Xak_t2 = sel(use_h, phi_t, Xk_t2)
-        Xak_R2 = sel(use_h, Xakh_R, Xk_R2)
-        Gk_f = torch.where(use_h,
-                           _eval_G_batch(probs, st, Xak_t2, Xak_R2, zres),
-                           Gk2)
+        t2 = sel(use_h, phi_t, Xk_t2)
+        R2 = sel(use_h, Xakh_R, Xk_R2)
+        return t2, R2, torch.where(use_h, _eval_G_batch(probs, st, t2, R2,
+                                                        zres), Gk2)
+
+    Xak_t2, Xak_R2, Gk_f = device_cond(use_h.any(), phi_fallback,
+                                       lambda: (Xk_t2, Xk_R2, Gk2),
+                                       syncs=syncs)
 
     s_next = torch.where(hard, torch.clamp(0.5 * st.s_next, min=1.0),
                          st.s_next)
@@ -827,7 +842,11 @@ def iterate_aa(probs: NodeProblem, st: MMState, opts: MMOptions, k: int,
     lam = opts.aa_reg + torch.finfo(gram.dtype).eps
     gram = gram + lam * torch.eye(m, dtype=gram.dtype, device=gram.device)
     chol, _ = torch.linalg.cholesky_ex(gram)
-    theta = torch.cholesky_solve(rhs, chol)[..., 0] / scale
+    # Two triangular solves (cholesky_solve's MAGMA route cannot be
+    # captured in a CUDA graph).
+    y = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    theta = torch.linalg.solve_triangular(chol.mT, y, upper=True)[..., 0] \
+        / scale
 
     x_aa = xT - (theta[:, None, :] @ (dX + dR))[:, 0]
     t_aa, R_raw = _unflat_own(x_aa, st.Z.t, st.Z.R)

@@ -13,8 +13,10 @@ gates global fallbacks using the TRUE global objective:
   5. F <- (1 - eta0) F + eta0 F(Xkp)
 
 There is no physical master: the global objective is an edge-sum over the
-gathered candidate state. The three master decisions are scalars, read on
-the host (`HostSyncs`), so a fallback that does not fire costs nothing.
+gathered candidate state. The three master decisions are scalars taken by
+`utils.device_cond`: read on the host (`HostSyncs`) on the host route, IF
+nodes of the captured step on the graph route; a fallback that does not
+fire costs nothing.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from dpgo_tpu_torch.manifold import proj_tangent
 from dpgo_tpu_torch.problem import NodeProblem, NodeState, _nsum
 from dpgo_tpu_torch.solvers.mm import (MMOptions, _eval_G_batch, _masked_tnt,
                                        resolve_preconditioner)
-from dpgo_tpu_torch.utils import HostSyncs
+from dpgo_tpu_torch.utils import HostSyncs, bump_tensor, device_cond
 
 # The master fallbacks, in the order iterate_star tests them.
 FALLBACKS = ("pm", "mm", "phi")
@@ -117,7 +119,9 @@ def iterate_star(probs: NodeProblem, st: StarState, opts: MMOptions,
 
     global_f_fn(t_own [N, n0, d], R_own [N, n0, d, d]) -> scalar exact global
     objective of the stacked candidate states. `fired` (optional) counts
-    the master fallbacks taken, by name (FALLBACKS). `reduce` sums the
+    the master fallbacks taken, by name (FALLBACKS): Python integers on the
+    host route, or 0-d int64 tensors on the device, bumped in the branch
+    (any route). `reduce` sums the
     psi-test's squared step over the processes that hold the other nodes
     (identity by default), so that every master decision is taken on
     global values."""
@@ -162,36 +166,51 @@ def iterate_star(probs: NodeProblem, st: StarState, opts: MMOptions,
         return sq if reduce is None else reduce(sq)
 
     def hit(name):
-        if fired is not None:
+        if fired is None:
+            return
+        if isinstance(fired.get(name), torch.Tensor):
+            bump_tensor(fired[name])
+        else:
             fired[name] = fired.get(name, 0) + 1
 
     # Master test 1: proximal candidates (psi-test on the true objective).
     fobjh = global_f_fn(Xh_t, Xh_R)
-    if syncs.flag(fobjh > st.F - opts.psi * sqdiff(Xh_t, Xh_R)):
+
+    def proximal_fallback():
         hit("pm")
-        Xh_t, Xh_R = probs.proximal(st.Z, (st.Df_t, st.Df_R))
-        fobjh = global_f_fn(Xh_t, Xh_R)
+        t, R = probs.proximal(st.Z, (st.Df_t, st.Df_R))
+        return t, R, global_f_fn(t, R)
+
+    Xh_t, Xh_R, fobjh = device_cond(
+        fobjh > st.F - opts.psi * sqdiff(Xh_t, Xh_R), proximal_fallback,
+        lambda: (Xh_t, Xh_R, fobjh), syncs=syncs)
 
     # Master test 2: refined candidates; fall back to MM from the Xkh
     # rotations with Nesterov shrink.
     fobj = global_f_fn(Xp_t, Xp_R)
-    s_next = st.s_next
-    if syncs.flag(fobj > st.F - opts.psi * sqdiff(Xp_t, Xp_R)):
+
+    def mm_fallback():
         hit("mm")
         t2 = probs.recover_translations(Xh_R, st.g_t, st.Z.t, syncs)
         G2 = _eval_G_batch(probs, st, t2, Xh_R, zres)
-        Xp_t, Xp_R, _ = _masked_tnt(probs, t2, Xh_R, st.g_t, st.g_R, refined,
-                                    opts.tnt, G2, syncs, t_anchor=st.Z.t,
-                                    anchor=anchor, precon=precon_kind)
-        fobj = global_f_fn(Xp_t, Xp_R)
-        s_next = torch.clamp(0.5 * s_next, min=1.0)
+        t, R, _ = _masked_tnt(probs, t2, Xh_R, st.g_t, st.g_R, refined,
+                              opts.tnt, G2, syncs, t_anchor=st.Z.t,
+                              anchor=anchor, precon=precon_kind)
+        return t, R, global_f_fn(t, R), torch.clamp(0.5 * st.s_next, min=1.0)
+
+    Xp_t, Xp_R, fobj, s_next = device_cond(
+        fobj > st.F - opts.psi * sqdiff(Xp_t, Xp_R), mm_fallback,
+        lambda: (Xp_t, Xp_R, fobj, st.s_next), syncs=syncs)
 
     # phi-test: adopt the proximal rotations + re-solved translations.
-    if syncs.flag((st.F - fobj) < opts.phi * (st.F - fobjh)):
+    def phi_fallback():
         hit("phi")
-        Xp_t = probs.recover_translations(Xh_R, st.g_t, st.Z.t, syncs)
-        Xp_R = Xh_R
-        fobj = global_f_fn(Xp_t, Xp_R)
+        t = probs.recover_translations(Xh_R, st.g_t, st.Z.t, syncs)
+        return t, Xh_R, global_f_fn(t, Xh_R)
+
+    Xp_t, Xp_R, fobj = device_cond(
+        (st.F - fobj) < opts.phi * (st.F - fobjh), phi_fallback,
+        lambda: (Xp_t, Xp_R, fobj), syncs=syncs)
 
     F_new = st.F * (1 - opts.eta0) + fobj * opts.eta0
     Z_new = NodeState(t=Xp_t, R=Xp_R, th=st.Z.th, Rh=st.Z.Rh)

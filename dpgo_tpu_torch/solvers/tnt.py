@@ -7,8 +7,10 @@ node axis. Here every quantity carries the node axis N: the variable is a
 tuple of [N, ...] tensors, tangent vectors are [N, ...] tensors (or, for the
 coupled (t, R) model, tuples of them), and scalars are [N] tensors. Each lane
 stops on its own condition and keeps its state after that (the vmapped
-while_loop's semantics); the loops run in Python and read their continuation
-flag on the host once per trip (`HostSyncs`).
+while_loop's semantics); the outer loop and the STPCG are
+`utils.bounded_while`s: on the host route they read their continuation flag
+on the host once per trip (`HostSyncs`), on the graph route they are WHILE
+nodes of the captured step.
 
 The global polish and the SE-Sync staircase solve one problem (x = (t, R) or
 Y without a node axis): `tnt_one` runs such a model as a batch of one.
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from dpgo_tpu_torch.ops.stpcg import ips, sel, stpcg_loop, stpcg_target
-from dpgo_tpu_torch.utils import HostSyncs
+from dpgo_tpu_torch.utils import HostSyncs, bounded_while, current_route
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,6 +297,10 @@ def tnt_generic(model: TNTModel, x0, params: TNTParams,
                 count=hist.count + keep.to(torch.int32))
 
         if user_fn is not None:
+            if current_route() != "host":
+                raise ValueError("tnt_generic: user_fn reads every outer "
+                                 "iteration on the host; it runs on the "
+                                 "host route only")
             live_user = (keep & running).cpu().numpy()
             stats = dict(k=st.k, fx=fx_new, gradnorm=st.gradnorm,
                          pgradnorm=st.pgradnorm, Delta=Delta_new,
@@ -334,12 +340,15 @@ def tnt_generic(model: TNTModel, x0, params: TNTParams,
         # The first iteration is peeled and reuses the init evaluation.
         out = step_core(init, live)
         out.done = out.done | ~live
-        while True:
-            running = (~out.done & (out.k < params.max_iterations)
-                       & (out.accepted < params.max_iterations_accepted))
-            if not syncs.flag(running.any()):
-                break
-            out = body(out, running).select(running, out)
+
+        def running_lanes(o: TNTState) -> torch.Tensor:
+            return (~o.done & (o.k < params.max_iterations)
+                    & (o.accepted < params.max_iterations_accepted))
+
+        out = bounded_while(
+            params.max_iterations, running_lanes,
+            lambda o, running: body(o, running).select(running, o), out,
+            syncs=syncs, name="tnt")
     if record:
         return out.x, out.fx, out.gradnorm, out.accepted, out.hist
     return out.x, out.fx, out.gradnorm, out.accepted

@@ -1,7 +1,31 @@
-"""Small shared utilities."""
+"""Small shared utilities, and the step's control flow.
+
+`device_cond` and `bounded_while` are the port's counterparts of the JAX
+package's `lax.cond` and bounded `lax.while_loop`. They take one of three
+routes, set for the process by `route(...)`:
+
+- "host" (the default; the CPU route and the eager route on the card): the
+  flag is read on the host (`HostSyncs.flag`) and Python takes one branch or
+  runs one more trip;
+- "capture" (the graph route on the card, inside `graph_nodes.capture`): a
+  branch becomes an IF node of the CUDA graph and a loop a WHILE node, so
+  the flag is read on the card when the graph runs and never by the host;
+- "trace": both branches and every trip run, merged with `torch.where`,
+  the JAX semantics (a skipped branch equals the taken one with all-false
+  flags). The CPU tests use it to show that every body is a function of its
+  operands alone; "warm" is the same with each loop cut to one trip, the
+  warm-up before a capture (every operation of the step runs once, its
+  result is thrown away).
+
+`DeviceCounters` counts on the device (kernel launches, loop entries and
+trips, master fallbacks): inside a graph the counts move at every replay,
+which a Python integer bumped at capture time cannot.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 
 import torch
@@ -23,9 +47,11 @@ class HostSyncs:
     """Counts the device-to-host reads of control flags.
 
     The JAX package keeps the whole step on the device (`lax.scan`,
-    `lax.cond`, `lax.while_loop`). This port reads those loop and branch
-    flags on the host instead (`if syncs.flag(mask.any()):`); each read waits
-    for the device. The solver owns one counter and reports syncs per step.
+    `lax.cond`, `lax.while_loop`). On the host route this port reads those
+    loop and branch flags on the host (`device_cond`, `bounded_while`); each
+    read waits for the device. On the graph route nothing is read and
+    nothing counts here (the loops count in `DeviceCounters`). The solver
+    owns one counter and reports syncs per step.
     PCM reads one consistency mask per node pair through `read`, which
     counts the same way.
 
@@ -78,3 +104,264 @@ class Stopwatch:
         if self._t0 is None:
             raise RuntimeError("tock() before tick()")
         return time.perf_counter() - self._t0
+
+
+# ----------------------------------------------------------- control flow
+
+ROUTES = ("host", "trace", "warm", "capture")
+
+
+class _Route:
+    """The process's control-flow route, and under "trace" / "warm" the
+    flag of the branch or trip being run (the conjunction of the enclosing
+    ones; None at top level)."""
+
+    mode = "host"
+    live = None
+
+
+@contextlib.contextmanager
+def route(mode: str):
+    """Run the block's `device_cond` / `bounded_while` on route `mode`."""
+    if mode not in ROUTES:
+        raise ValueError(f"unknown control-flow route {mode!r}")
+    saved = (_Route.mode, _Route.live)
+    _Route.mode, _Route.live = mode, None
+    try:
+        yield
+    finally:
+        _Route.mode, _Route.live = saved
+
+
+def current_route() -> str:
+    return _Route.mode
+
+
+@contextlib.contextmanager
+def _live(flag: torch.Tensor):
+    """Trace: the block runs as if under `flag` (counters move only where
+    it and every enclosing flag hold)."""
+    saved = _Route.live
+    _Route.live = flag if saved is None else saved & flag
+    try:
+        yield
+    finally:
+        _Route.live = saved
+
+
+def flatten(x):
+    """(tensor leaves, rebuild) of a tensor or of tuples, lists, named
+    tuples and dataclasses of them; other leaves (None, numbers) are kept
+    as they are and must not differ between the trees a merge takes."""
+    leaves = []
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            leaves.append(v)
+            return None
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return (type(v), [walk(u) for u in v])
+        if isinstance(v, (tuple, list)):
+            return (type(v), [walk(u) for u in v])
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            return (v, {f.name: walk(getattr(v, f.name))
+                        for f in dataclasses.fields(v) if f.init})
+        return ("leaf", v)
+
+    spec = walk(x)
+
+    def rebuild(new):
+        it = iter(new)
+
+        def build(sp):
+            if sp is None:
+                return next(it)
+            kind, body = sp
+            if isinstance(kind, str):
+                return body
+            if isinstance(kind, type):
+                vals = [build(u) for u in body]
+                return kind(*vals) if hasattr(kind, "_fields") else kind(vals)
+            return dataclasses.replace(
+                kind, **{n: build(u) for n, u in body.items()})
+
+        return build(spec)
+
+    return leaves, rebuild
+
+
+def _merge(flag: torch.Tensor, a, b):
+    """Per the 0-d `flag`: tree a where set, else tree b."""
+    la, rebuild = flatten(a)
+    lb, _ = flatten(b)
+    return rebuild([torch.where(flag, x, y) for x, y in zip(la, lb)])
+
+
+def _copy_into(bufs: list, new: list) -> None:
+    """bufs[i] <- new[i] in place, where a new leaf may be (or share memory
+    with) a buffer: those are copied aside first, so no copy reads a
+    buffer an earlier copy wrote."""
+    held = {b.untyped_storage().data_ptr() for b in bufs}
+    src = []
+    for b, x in zip(bufs, new):
+        if x is b:
+            src.append(None)
+        elif x.untyped_storage().data_ptr() in held:
+            src.append(x.clone())
+        else:
+            src.append(x)
+    for b, x in zip(bufs, src):
+        if x is not None:
+            b.copy_(x)
+
+
+def device_cond(pred: torch.Tensor, true_fn, false_fn, operands=(),
+                syncs: HostSyncs | None = None):
+    """`true_fn(*operands)` where the 0-d bool `pred` holds, else
+    `false_fn(*operands)`: the counterpart of `lax.cond`. Both return trees
+    of tensors of the same structure, shapes and types. Host route: one
+    flag read (counted in `syncs`). Capture: two IF nodes, on `pred` and on
+    its negation; the taken branch's result is copied into buffers the
+    first branch allocates. Trace: both run, merged."""
+    mode = _Route.mode
+    if mode == "host":
+        take = (syncs or HostSyncs()).flag(pred)
+        return (true_fn if take else false_fn)(*operands)
+    if mode in ("trace", "warm"):
+        with _live(pred):
+            a = true_fn(*operands)
+        with _live(~pred):
+            b = false_fn(*operands)
+        return _merge(pred, a, b)
+    from dpgo_tpu_torch.ops import graph_nodes
+    npred = ~pred
+    with graph_nodes.conditional(pred, graph_nodes.IF):
+        leaves, rebuild = flatten(true_fn(*operands))
+        bufs = [x.clone() for x in leaves]
+    with graph_nodes.conditional(npred, graph_nodes.IF):
+        other, _ = flatten(false_fn(*operands))
+        _copy_into(bufs, other)
+    return rebuild(bufs)
+
+
+def bounded_while(max_trips: int, cond_fn, body_fn, carry,
+                  syncs: HostSyncs | None = None, name: str | None = None):
+    """At most `max_trips` trips of `carry = body_fn(carry, running)` while
+    `running = cond_fn(carry)` (a bool tensor, one flag per lane) has a
+    set lane: the counterpart of a `lax.while_loop` with a trip cap. The
+    body keeps the lanes outside `running` as they were. `name` counts the
+    loop's entries and trips in `DeviceCounters` (`name + ".entries"`,
+    `name + ".trips"`) and, on the host route, in `syncs.note`.
+
+    Host route: one flag read per trip (and one to leave). Capture: one
+    WHILE node; the carry lives in buffers the body overwrites, its flag
+    is recomputed at the body's end. Trace: every trip runs, each merged on
+    its own flag."""
+    mode = _Route.mode
+    syncs = syncs or HostSyncs()
+    if mode == "host":
+        trips = 0
+        while trips < max_trips:
+            running = cond_fn(carry)
+            if not syncs.flag(running.any()):
+                break
+            carry = body_fn(carry, running)
+            trips += 1
+        if name is not None:
+            syncs.note(name, trips)
+            dev = flatten(carry)[0][0].device
+            DeviceCounters.bump(name + ".entries", dev)
+            DeviceCounters.bump(name + ".trips", dev, trips)
+        return carry
+    leaves, rebuild = flatten(carry)
+    dev = leaves[0].device
+    trips = torch.zeros((), dtype=torch.int64, device=dev)
+    if mode in ("trace", "warm"):
+        for _ in range(max_trips if mode == "trace" else min(max_trips, 1)):
+            running = cond_fn(carry)
+            go = running.any()
+            with _live(go):
+                new = body_fn(carry, running)
+            carry = _merge(go, new, carry)
+            trips = trips + go.to(torch.int64)
+    else:
+        from dpgo_tpu_torch.ops import graph_nodes
+        bufs = [x.clone() for x in leaves]
+        carry = rebuild(bufs)
+        running = cond_fn(carry).clone()
+        go = running.any() & (max_trips > 0)
+        with graph_nodes.conditional(go, graph_nodes.WHILE) as handle:
+            new, _ = flatten(body_fn(rebuild(bufs), running))
+            _copy_into(bufs, new)
+            trips.add_(1)
+            running.copy_(cond_fn(rebuild(bufs)))
+            graph_nodes.again(handle, running.any() & (trips < max_trips))
+        carry = rebuild(bufs)
+    if name is not None:
+        DeviceCounters.bump(name + ".entries", dev)
+        DeviceCounters.bump(name + ".trips", dev, trips)
+    return carry
+
+
+class DeviceCounters:
+    """Named int64 counters on the device, bumped by the step itself: a
+    kernel wrapper where it launches its kernel ("polar_so3",
+    "polar_so3_f64", "stpcg", "stpcg_d2"), `bounded_while` per loop
+    ("seg_cg", "stpcg", "tnt": `.entries`, `.trips`), the master tests of
+    AMM-PGO* through `bump_tensor`. Under "trace" a bump counts only where
+    the enclosing branch and trip flags hold, so the trace route counts
+    what the host route takes. A counter is made at its first bump, which
+    must come before any capture (the warm-up step reaches every one);
+    `reset` zeroes them in place, so a captured graph keeps counting into
+    the same tensors."""
+
+    _t: dict = {}
+
+    @classmethod
+    def _key(cls, name: str, device) -> tuple:
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return name, dev
+
+    @classmethod
+    def bump(cls, name: str, device, by=1) -> None:
+        key = cls._key(name, device)
+        t = cls._t.get(key)
+        if t is None:
+            if _Route.mode == "capture":
+                raise RuntimeError(f"device counter {name!r} is first bumped "
+                                   "inside a graph capture")
+            t = cls._t[key] = torch.zeros((), dtype=torch.int64,
+                                          device=key[1])
+        bump_tensor(t, by)
+
+    @classmethod
+    def read(cls, name: str) -> int:
+        """The count, summed over devices; waits for the card."""
+        return sum(int(t) for (n, _), t in cls._t.items() if n == name)
+
+    @classmethod
+    def reset(cls) -> None:
+        for t in cls._t.values():
+            t.zero_()
+
+    @classmethod
+    def snapshot(cls) -> dict:
+        return {k: t.clone() for k, t in cls._t.items()}
+
+    @classmethod
+    def restore(cls, snap: dict) -> None:
+        """Counters back to a snapshot (new ones since to zero)."""
+        for k, t in cls._t.items():
+            if k in snap:
+                t.copy_(snap[k])
+            else:
+                t.zero_()
+
+
+def bump_tensor(t: torch.Tensor, by=1) -> None:
+    """t += by in place, where the trace route's enclosing flags hold."""
+    if _Route.live is not None:
+        by = _Route.live.to(torch.int64) * by
+    t.add_(by)

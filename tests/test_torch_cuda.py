@@ -442,7 +442,7 @@ def test_large_block_paths_kernels_match_plain(dev, path):
     1e-4); K2 launched, K1 never (it is built for dense blocks only)."""
     from dpgo_tpu_torch.driver import DPGOSolver
     from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
-    from dpgo_tpu_torch.utils import HostSyncs
+    from dpgo_tpu_torch.utils import DeviceCounters, HostSyncs
 
     kw = (dict(segment_limit=32, seg_size=32) if path == "segment"
           else dict(dense_limit=0))
@@ -451,10 +451,12 @@ def test_large_block_paths_kernels_match_plain(dev, path):
     assert s.probs.seg == (path == "segment") and not s.probs.dense
     assert not s.fused_stpcg_engaged()
     k1, k2 = stpcg_cuda.Launches.count, polar_so3_cuda.Launches.count
+    trips = DeviceCounters.read("stpcg.trips")
     _, _, (f, _) = s.run_steps_history(s.initialize(), 0, 20)
     assert stpcg_cuda.Launches.count == k1
     assert polar_so3_cuda.Launches.count > k2
-    assert s.syncs.loops["stpcg"][1] > 0  # the torch STPCG refined
+    # The torch STPCG refined (its trips counted inside the replays).
+    assert DeviceCounters.read("stpcg.trips") > trips
     s.probs = dataclasses.replace(s.probs, kernels=False)
     s.syncs = HostSyncs()
     k2 = polar_so3_cuda.Launches.count
@@ -478,6 +480,7 @@ def test_forced_segment_matches_dense_path_at_real_scale(dev):
     from dpgo_tpu_torch.io.g2o import read_g2o_file
     from dpgo_tpu_torch.solvers.mm import MMOptions
     from dpgo_tpu_torch.solvers.tnt import TNTParams
+    from dpgo_tpu_torch.utils import DeviceCounters
 
     meas = read_g2o_file(os.path.join(REPO, "artifacts", "rim_synth.g2o"))
     opts = MMOptions(accelerated=True, tnt=TNTParams(max_iterations=0))
@@ -495,12 +498,13 @@ def test_forced_segment_matches_dense_path_at_real_scale(dev):
     assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
     res = []
     for s in (dense, seg):
+        entries = DeviceCounters.read("seg_cg.entries")
         st, _ = s.run_steps(s.initialize(), 0, 50)
         res.append([float(x) for x in s._metrics(st)])
     (fd, gd), (fs, gs) = res
     np.testing.assert_allclose(fs, fd, rtol=1e-6)
     np.testing.assert_allclose(gs, gd, rtol=1e-3)
-    assert seg.syncs.loops["seg_cg"][0] >= 50
+    assert DeviceCounters.read("seg_cg.entries") - entries >= 50
 
 
 @pytest.mark.cuda
@@ -639,13 +643,16 @@ def test_aa_with_k2_matches_plain(dev):
     from dpgo_tpu_torch.driver import DPGOSolver
     from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
     from dpgo_tpu_torch.solvers.mm import MMOptions
-    from dpgo_tpu_torch.utils import HostSyncs
+    from dpgo_tpu_torch.utils import DeviceCounters, HostSyncs
 
     s = DPGOSolver(_grid3d(), num_nodes=4, opts=MMOptions(scheme="aa"),
                    dtype=torch.float32, device=dev)
     k1, k2 = stpcg_cuda.Launches.count, polar_so3_cuda.Launches.count
+    k2_dev = DeviceCounters.read("polar_so3")
     _, _, (f, _) = s.run_steps_history(s.initialize(), 0, 20)
-    assert polar_so3_cuda.Launches.count >= k2 + 40
+    # Two per step, counted at every replay of the captured step.
+    assert DeviceCounters.read("polar_so3") >= k2_dev + 40
+    assert polar_so3_cuda.Launches.count > k2
     assert stpcg_cuda.Launches.count == k1
     assert s.syncs.count == 0
     s.probs = dataclasses.replace(s.probs, kernels=False)
@@ -783,3 +790,132 @@ def test_split_polish_on_the_card(dev):
             assert not res["share"]["full_probs"]
             counts = res["polish_counts"]
             assert counts["host_copies"] == 2 * counts["collectives"] > 0
+
+
+# ------------------------------------------------------------ graph route
+
+
+def _graph_solver(dev, kind, dtype):
+    from dpgo_tpu_torch.driver import DPGOSolver, DPGOStarSolver
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    kw = dict(segment_limit=32, seg_size=32) if kind == "segment" else {}
+    cls = DPGOStarSolver if kind == "star" else DPGOSolver
+    return cls(_grid3d(), num_nodes=4, opts=MMOptions(accelerated=True),
+               dtype=dtype, device=dev, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["dense", "segment", "star"])
+def test_graph_route_matches_eager_route(dev, kind, dtype):
+    """run_steps_history (the captured step replayed, conditional nodes for
+    its branches and loops) against run_steps_history_eager (the same step,
+    flags read on the host) on grid3D_synth with 4 nodes: per-step 2f
+    within 1e-5 relative in float32 (index_add_ and atomics sum in another
+    order from run to run), 1e-10 in float64, and there 2|grad| within
+    1e-7; no host read on the graph
+    route; the device counters of K2 (and of K1 on the dense f32 path)
+    move at every replay of an unchanged capture."""
+    from dpgo_tpu_torch.utils import DeviceCounters
+    s = _graph_solver(dev, kind, dtype)
+    st0 = s.initialize()
+    syncs = s.syncs.count
+    st, k, (f, g) = s.run_steps_history(st0, 0, 20)
+    assert k == 20 and s.syncs.count == syncs
+    capture = s._graph
+    _, _, (fe, ge) = s.run_steps_history_eager(st0, 0, 20)
+    assert s.syncs.count > syncs
+    rtol = 1e-5 if dtype == torch.float32 else 1e-10
+    np.testing.assert_allclose(f.cpu().numpy(), fe.cpu().numpy(), rtol=rtol)
+    if dtype == torch.float64:
+        # In float32 the gradient norm near the optimum is cancellation:
+        # the two routes' scatter orders move it by up to ~15%.
+        np.testing.assert_allclose(g.cpu().numpy(), ge.cpu().numpy(),
+                                   rtol=1e3 * rtol)
+    k2 = "polar_so3" if dtype == torch.float32 else "polar_so3_f64"
+    names = [k2] + (["stpcg"] if kind == "dense"
+                    and dtype == torch.float32 else [])
+    before = {n: DeviceCounters.read(n) for n in names}
+    s.run_steps(st, 20, 5)
+    assert s._graph is capture  # no recapture
+    for n in names:
+        assert DeviceCounters.read(n) >= before[n] + 5, n
+    if kind == "dense":
+        assert s.step_flops(st) > 0
+
+
+@pytest.mark.cuda
+def test_graph_replay_reads_nothing_on_the_host(dev):
+    """Once captured, a run_steps call (load, replays, the copy out) and a
+    run_steps_history call run under torch.cuda.set_sync_debug_mode
+    ("error"): no operation waits for the card. Huber with dynamic
+    rescale, so the reweighted problems rebuild inside the replay."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.losses import Loss
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    s = DPGOSolver(_grid3d(), num_nodes=4, dtype=torch.float32, device=dev,
+                   opts=MMOptions(accelerated=True, rescale="dynamic"),
+                   loss=Loss.HUBER)
+    st0 = s.initialize()
+    s.run_steps(st0, 0, 2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, _ = s.run_steps(st0, 0, 10)
+        st, _, _ = s.run_steps_history(st, 10, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(st.Z.t).all())
+    assert float(st.scale_w.min()) < 1.0  # the rescale ran in the replays
+
+
+@pytest.mark.cuda
+def test_graph_runs_from_one_state_are_equal_and_do_not_alias(dev):
+    """Two run_steps calls from one state give the same state (to 1e-9 of
+    each field's largest entry: the card's scatter order), neither
+    shares memory with the start, the other result or the capture's
+    buffers, and the start is left as it was."""
+    from dpgo_tpu_torch.utils import flatten
+    s = _graph_solver(dev, "dense", torch.float64)
+    st0 = s.initialize()
+    before = [x.clone() for x in flatten(st0)[0]]
+    a, _ = s.run_steps(st0, 0, 6)
+    b, _ = s.run_steps(st0, 0, 6)
+    # (Zero-sized fields, Anderson's history off, hold no memory.)
+    held = {x.untyped_storage().data_ptr() for x in s._graph.static
+            if x.numel()}
+    for x0, x, y, z in zip(before, flatten(st0)[0], flatten(a)[0],
+                           flatten(b)[0]):
+        assert torch.equal(x0, x)
+        # float64; index_add_'s atomics sum in another order per run, so
+        # a field is held to 1e-9 of its largest entry.
+        scale = (float(z.abs().max()) if z.is_floating_point()
+                 and z.numel() else 0.0)
+        torch.testing.assert_close(y, z, rtol=0, atol=1e-9 * scale)
+        if x.numel():
+            ptrs = {t.untyped_storage().data_ptr() for t in (x, y, z)}
+            assert len(ptrs) == 3 and not ptrs & held
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(dev):
+    """A step that reads the card on the host cannot be captured: run_steps
+    raises (at the read, in the warm-up before the capture; no quiet fall
+    back to the host-read route) and keeps no graph; the solver's
+    host-read route still runs."""
+    s = _graph_solver(dev, "dense", torch.float32)
+    st0 = s.initialize()
+    advance = s._advance
+
+    def reads_the_card(probs, st, k):
+        out = advance(probs, st, k)
+        float(out[0].fobj.sum())
+        return out
+
+    s._advance = reads_the_card
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        s.run_steps(st0, 0, 3)
+    assert s._graph is None
+    st, k = s.run_steps_eager(st0, 0, 2)
+    assert k == 2 and bool(torch.isfinite(st.Z.t).all())

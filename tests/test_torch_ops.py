@@ -363,16 +363,18 @@ def test_choose_cluster_size_raises_when_nothing_fits():
 
 @pytest.mark.parametrize("entry", ["DPGOSolver", "build_node_problems",
                                    "EdgeData.from_measurements",
-                                   "build_sesync_problem"])
+                                   "build_sesync_problem", "min_eig_lobpcg"])
 def test_entry_points_default_to_the_card(entry):
-    """DPGOSolver, build_node_problems, EdgeData.from_measurements and
-    build_sesync_problem without `device` build on the CUDA card; on a host
-    without one they raise instead of building on the CPU."""
+    """DPGOSolver, build_node_problems, EdgeData.from_measurements,
+    build_sesync_problem and min_eig_lobpcg (without a tensor `deflate`)
+    without `device` build on the CUDA card; on a host without one they
+    raise instead of building on the CPU."""
     from dpgo_tpu_torch.driver import DPGOSolver
     from dpgo_tpu_torch.graph import build_multigraph
     from dpgo_tpu_torch.objective import EdgeData
     from dpgo_tpu_torch.problem import build_node_problems
     from dpgo_tpu_torch.sesync.problem import build_sesync_problem
+    from dpgo_tpu_torch.sesync.staircase import min_eig_lobpcg
 
     meas = _torch_meas(random_pose_graph(np.random.default_rng(1),
                                          num_poses=12, d=3,
@@ -386,6 +388,9 @@ def test_entry_points_default_to_the_card(entry):
             return EdgeData.from_measurements(meas).tau
         if entry == "build_sesync_problem":
             return build_sesync_problem(meas).tau
+        if entry == "min_eig_lobpcg":
+            return min_eig_lobpcg(lambda V: 2.0 * V, 8, 0, torch.float64,
+                                  iters=2)[1]
         return build_node_problems(build_multigraph(meas, 2)[2]).Hred_d
 
     if torch.cuda.is_available():

@@ -187,7 +187,7 @@ def test_min_eig_lobpcg_matches_dense(precon):
         A = rng.normal(size=(n, n))
         S = torch.as_tensor(0.5 * (A + A.T))
         lam, _, _ = min_eig_lobpcg(lambda V: S @ V, n, 0, torch.float64,
-                                   block=4, iters=150)
+                                   block=4, iters=150, device="cpu")
         np.testing.assert_allclose(float(lam),
                                    np.linalg.eigvalsh(S.numpy())[0],
                                    rtol=1e-6, atol=1e-8)
@@ -202,9 +202,10 @@ def test_min_eig_lobpcg_matches_dense(precon):
 
     pre = chebyshev_precon(apply_S, lam_max=1.05e3, degree=10)
     _, _, resid_p = min_eig_lobpcg(apply_S, n, 0, torch.float64, block=4,
-                                   iters=20)
+                                   iters=20, device="cpu")
     lam_c, _, resid_c = min_eig_lobpcg(apply_S, n, 0, torch.float64,
-                                       block=4, iters=20, precon=pre)
+                                       block=4, iters=20, precon=pre,
+                                       device="cpu")
     assert float(resid_c) < 0.1 * float(resid_p)
     np.testing.assert_allclose(float(lam_c), np.linalg.eigvalsh(S.numpy())[0],
                                rtol=1e-3)
