@@ -64,7 +64,11 @@ seconds, and the end the whole run's.
    - polish_rim100k: the global polish (3 outer iterations, STPCG capped at
      100, no coarse level) of rim100k_prox's state after its 100 steps: the
      segment branch of the node-block preconditioner and K2 at
-     [102400, 3, 3]; 2f held not above the JAX bench's 167909.09.
+     [102400, 3, 3]; 2f held not above the JAX bench's 167909.09. Its TNT
+     runs as one captured program (graph route); the same polish on the
+     host-read route follows (`polish(eager=True)`): 2f held within 1e-5
+     relative, seconds, iterations, host syncs, pool and peak memory
+     printed for both.
    On the rim100k solver two choices the package made are measured again:
    the block form of `mG00_matvec` against the edge-wise form, and the
    host-read CG loop against a fixed-trip loop that reads nothing (both
@@ -75,9 +79,12 @@ seconds, and the end the whole run's.
    - polish_rim: a float64 DPGOSolver on rim_synth with the refinement off,
      started from path 1's float32 estimate after its 150 steps, runs
      `polish(outer=10, tcg=300, coarse=True)` (K2 in float64 in every
-     retraction); 2f held within 1e-8 of the certified optimum
-     RIM_CERTIFIED_2F, 2|grad| to fall 100x, and the same polish with K2's
-     plain version to agree within 1e-10 in 2f.
+     retraction), its TNT captured as one program (outer loop and STPCG
+     WHILE nodes) and replayed once, no host sync in it (held); 2f held
+     within 1e-8 of the certified optimum RIM_CERTIFIED_2F, 2|grad| to
+     fall 100x, the same polish on the host-read route
+     (`polish(eager=True)`) and with K2's plain version to agree within
+     1e-10 in 2f; seconds, iterations and host syncs of both routes.
    - certify_rim: `certify_solution` on the card for the polished rotations
      (certified, lambda_min >= -1e-5, 2 fxhat within 1e-8 of the optimum)
      and for a negative control (rotations of poses 2000-3999 turned 0.5
@@ -115,8 +122,16 @@ seconds, and the end the whole run's.
    a process of its own started by `parallel.launch.spawn` after the
    kernels are built here, on rim_synth (16 nodes, dense path, refined
    preset, float32, from rim's chordal start):
-   - nccl1: `ShardedDPGOSolver` over NCCL at world size 1 on cuda:0, halo
-     "boundary", 150 steps;
+   - nccl1: over NCCL at world size 1 on cuda:0, on the graph route (the
+     step captured with its NCCL collectives, 0 host syncs per step held):
+     first probe_nccl_conditional (an all_reduce and an all_gather inside
+     IF and WHILE bodies, held equal to eager); `ShardedDPGOSolver`, halo
+     "boundary", 150 steps, and `ShardedDPGOStarSolver`, 50 steps (its
+     master fallbacks' collectives inside IF bodies), each also on the
+     host-read route in the same rank (2f within 1e-3 of the graph
+     route's at every step; K1 / K2 launches and collectives per step,
+     from device counters, within 0.1 per step, collectives equal where
+     the fallbacks are);
    - gloo4: four ranks on cuda:0 over gloo (halos staged through the host):
      AMM-PGO# with "boundary", 150 steps; 20 steps each of "boundary"
      twice, "gather" and "ring", once in the default mode and once under
@@ -828,14 +843,6 @@ def device_loop_stats() -> dict:
     return out
 
 
-def loop_stats(syncs) -> dict:
-    """Trips per entry of the host-driven loops a run reported (the segment
-    path's translation CG, the torch STPCG): {name: [entries, trips per
-    entry]}."""
-    return {name: [n, trips / max(n, 1)]
-            for name, (n, trips) in syncs.loops.items()}
-
-
 def peak_start(device) -> int:
     """Wait for the card, restart its peak-memory count; the bytes
     allocated now."""
@@ -1048,7 +1055,6 @@ def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
     from dpgo_tpu_torch.sesync.staircase import certify_solution
     from dpgo_tpu_torch.solvers.mm import MMOptions
     from dpgo_tpu_torch.solvers.tnt import TNTParams
-    from dpgo_tpu_torch.utils import HostSyncs
 
     # polish_rim: a float64 solver with the refinement off, started from the
     # rim path's float32 estimate; the global TNT with the rigid coarse
@@ -1064,28 +1070,28 @@ def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
           f"from rim's float32 estimate: build and initialize "
           f"{time.perf_counter() - t0:.1f} s; 2f {f0:.8f}, 2|grad| {g0:.3e}")
 
-    def polish(sv):
-        sv.syncs = HostSyncs()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st, f2 = sv.polish(st0, outer=POLISH_OUTER, tcg=POLISH_TCG,
-                           coarse=True)
-        torch.cuda.synchronize()
-        return st, f2, time.perf_counter() - t0
-
+    kw = dict(outer=POLISH_OUTER, tcg=POLISH_TCG, coarse=True)
     reset_counts()
-    mem0 = peak_start(dev)
-    st, f2, secs = polish(solver)
-    mem = peak_read(dev, mem0)
+    run = timed_polish(solver, st0, kw, dev)
     launches["polish_rim"] = kernel_counts()
+    st, f2, secs, mem = run.pop("state"), run["f2"], run["seconds"], \
+        run["memory"]
+    outer, cg = run["outer"], run["cg_iterations"]
     f, g = (float(x) for x in solver._metrics(st))
-    outer, cg = solver.syncs.loops.get("stpcg", [0, 0])
     gap = f2 / RIM_CERTIFIED_2F - 1.0
     print(f"polish_rim [{card}]: {secs:.2f} s, {outer} outer iterations, "
-          f"{cg} CG iterations, {solver.syncs.count} host syncs, K2 float64 "
-          f"launches {launches['polish_rim']['polar_so3_f64']}; 2f "
+          f"{cg} CG iterations, {run['tnt_host_syncs']} host syncs in the "
+          f"TNT ({run['host_syncs']} with the re-initialization), K2 "
+          f"float64 launches {launches['polish_rim']['polar_so3_f64']}; 2f "
           f"{f2:.10f} (exact oracle {f:.10f}), {gap:.3e} relative to the "
           f"certified {RIM_CERTIFIED_2F}; 2|grad| {g0:.3e} -> {g:.3e}")
+    # The same polish on the host-read route (each loop flag read).
+    eager = timed_polish(solver, st0, dict(kw, eager=True), dev)
+    del eager["state"]
+    rel_eager = abs(f2 - eager["f2"]) / abs(eager["f2"])
+    polish_routes("polish_rim", run, eager, rel_eager, card)
+    check(rel_eager <= 1e-10, f"polish_rim: the graph and host-read routes' "
+          f"2f part by {rel_eager} > 1e-10")
     check(launches["polish_rim"]["polar_so3_f64"] > 0, "polish_rim: K2 "
           f"float64 was not launched: {launches['polish_rim']}")
     check(abs(gap) <= 1e-8, f"polish_rim: 2f {f2} not within 1e-8 of the "
@@ -1095,9 +1101,15 @@ def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
     # The same polish with K2's plain version.
     twin = copy.copy(solver)
     twin.probs = dataclasses.replace(solver.probs, kernels=False)
-    before = kernel_counts()
-    _, f2p, secs_p = polish(twin)
-    check(kernel_counts() == before, "polish_rim: the plain run launched a "
+
+    def kernels_only():  # the plain run captures IF / WHILE nodes of its own
+        return {k: v for k, v in kernel_counts().items()
+                if k != "graph_cond"}
+
+    before = kernels_only()
+    plain = timed_polish(twin, st0, kw, dev)
+    f2p, secs_p = plain["f2"], plain["seconds"]
+    check(kernels_only() == before, "polish_rim: the plain run launched a "
           "kernel")
     rel = abs(f2 - f2p) / abs(f2p)
     print(f"polish_rim with plain versions [{card}]: {secs_p:.2f} s, 2f "
@@ -1109,13 +1121,16 @@ def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
           f"polish; problems {problem_bytes(solver.probs) / 2**20:.1f} MiB")
     paths["polish_rim"] = {
         "seconds": secs, "plain_seconds": secs_p, "outer": outer,
-        "cg_iterations": cg, "host_syncs": solver.syncs.count,
+        "cg_iterations": cg, "host_syncs": run["host_syncs"],
+        "tnt_host_syncs": run["tnt_host_syncs"], "route": run["route"],
+        "capture_s": run["capture_s"], "pool_bytes": run["pool_bytes"],
+        "eager": eager, "graph_vs_eager": rel_eager,
         "memory": mem, "problem_bytes": problem_bytes(solver.probs),
         "f2_start": f0, "grad2_start": g0, "f2": f2, "f2_plain": f2p,
         "grad2": g, "gap_to_certified": gap,
         "launches": launches["polish_rim"], "card": card}
     R_pol = solver.gather_global(st)[1].cpu().numpy()
-    del solver, twin, st, st0
+    del solver, twin, st, st0, plain
 
     # certify_rim: the polished rotations, then a negative control.
     th = 0.5
@@ -1587,6 +1602,49 @@ def phase_segment_choices(solver, init, card, steps=25):
     return out
 
 
+def timed_polish(solver, st, kw, dev) -> dict:
+    """solver.polish(st, **kw) timed (ending in a synchronize): seconds,
+    2f, the state it returns, outer and CG iterations, route, capture
+    seconds and pool bytes (graph route), host syncs in all and in its TNT
+    alone, and the peak of allocated memory."""
+    import torch
+
+    from dpgo_tpu_torch.utils import HostSyncs
+    solver.syncs = HostSyncs()
+    mem0 = peak_start(dev)
+    t0 = time.perf_counter()
+    st2, f2 = solver.polish(st, **kw)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    stats = {k: v for k, v in solver.polish_stats.items() if k != "history"}
+    return dict(stats, seconds=secs, f2=f2, state=st2,
+                host_syncs=solver.syncs.count, memory=peak_read(dev, mem0))
+
+
+def polish_routes(name, run, eager, rel, card):
+    """Print a polish on the graph route beside the same polish on the
+    host-read route (`timed_polish` records) and hold the graph route's
+    TNT to no host sync."""
+    mib = 2.0 ** 20
+    print(f"{name} graph vs host-read route [{card}]: {run['seconds']:.2f} "
+          f"vs {eager['seconds']:.2f} s; {run['outer']} vs {eager['outer']}"
+          f" outer, {run['cg_iterations']} vs {eager['cg_iterations']} CG "
+          f"iterations; host syncs in the TNT {run['tnt_host_syncs']} vs "
+          f"{eager['tnt_host_syncs']} ({run['host_syncs']} vs "
+          f"{eager['host_syncs']} with the re-initialization); captured in "
+          f"{run['capture_s']:.2f} s after a {run['warmup_s']:.2f} s "
+          f"warm-up, pools {run['pool_bytes'] / mib:.1f} MiB; peak "
+          f"allocated {run['memory']['peak'] / mib:.1f} vs "
+          f"{eager['memory']['peak'] / mib:.1f} MiB "
+          f"({run['memory']['above'] / mib:.1f} vs "
+          f"{eager['memory']['above'] / mib:.1f} above the start); 2f "
+          f"relative difference {rel:.3e}")
+    check(run["route"] == "graph" and eager["route"] == "host",
+          f"{name}: routes {run['route']} / {eager['route']}")
+    check(run["tnt_host_syncs"] == 0, f"{name}: the captured TNT read the "
+          f"card on the host {run['tnt_host_syncs']} times")
+
+
 def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
                       to_profile):
     """The paths above the dense limit (module docstring, 7): the three
@@ -1602,7 +1660,6 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
     from dpgo_tpu_torch.solvers.mm import MMOptions, resolve_preconditioner
     from dpgo_tpu_torch.solvers.tnt import TNTParams
     from dpgo_tpu_torch.synthetic import with_outliers
-    from dpgo_tpu_torch.utils import HostSyncs
 
     path = ensure_rim100k(root)
     t0 = time.perf_counter()
@@ -1633,39 +1690,34 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
     # level: the segment branch of the node-block preconditioner (segment
     # mG11 inverses, segment-Schwarz CG translation solves) and K2 at
     # [102400, 3, 3] in float32.
-    solver_p.syncs = HostSyncs()
+    kw = dict(outer=POLISH_100K_OUTER, tcg=POLISH_100K_TCG, coarse=False)
     reset_counts()
-    mem0 = peak_start(dev)
-    t0 = time.perf_counter()
-    st, f2 = solver_p.polish(st, outer=POLISH_100K_OUTER,
-                             tcg=POLISH_100K_TCG, coarse=False)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    mem = peak_read(dev, mem0)
+    run = timed_polish(solver_p, st, kw, dev)
     launches["polish_rim100k"] = kernel_counts()
-    f_ex = float(solver_p._metrics(st)[0])
-    loops = loop_stats(solver_p.syncs)
-    print(f"polish_rim100k [{card}]: {secs:.2f} s, 2f "
+    loops = device_loop_stats()
+    f2 = run["f2"]
+    f_ex = float(solver_p._metrics(run.pop("state"))[0])
+    eager = timed_polish(solver_p, st, dict(kw, eager=True), dev)
+    del eager["state"]
+    rel = abs(f2 - eager["f2"]) / abs(eager["f2"])
+    print(f"polish_rim100k [{card}]: 2f "
           f"{paths['rim100k_prox']['f2_exact']:.2f} -> {f2:.2f} (exact "
-          f"{f_ex:.2f}), {solver_p.syncs.count} host syncs, host-driven "
-          f"loops [entries, trips per entry] {loops}, launches "
-          f"{launches['polish_rim100k']}; peak allocated "
-          f"{mem['peak'] / 2**20:.1f} MiB, {mem['above'] / 2**20:.1f} MiB "
-          f"above the start of the polish; problems "
+          f"{f_ex:.2f}); launches {launches['polish_rim100k']}, device "
+          f"loops [entries, trips per entry] {loops}; problems "
           f"{problem_bytes(solver_p.probs) / 2**20:.1f} MiB")
+    polish_routes("polish_rim100k", run, eager, rel, card)
     check(np.isfinite(f2) and f2 <= RIM100K_JAX_2F_100, "polish_rim100k: "
           f"2f {f2} not finite or above {RIM100K_JAX_2F_100}")
     check(launches["polish_rim100k"]["polar_so3"] > 0, "polish_rim100k: K2 "
           "was not launched")
     check(loops.get("seg_cg", [0])[0] > 0, "polish_rim100k: no "
           "segment-Schwarz CG solve ran")
-    paths["polish_rim100k"] = {"seconds": secs, "f2": f2, "f2_exact": f_ex,
-                               "host_syncs": solver_p.syncs.count,
-                               "memory": mem,
-                               "problem_bytes": problem_bytes(solver_p.probs),
-                               "loops": loops,
-                               "launches": launches["polish_rim100k"],
-                               "card": card}
+    check(rel <= SPLIT_100K_RTOL, f"polish_rim100k: the graph and host-read "
+          f"routes' 2f part by {rel} > {SPLIT_100K_RTOL}")
+    paths["polish_rim100k"] = dict(
+        run, f2_exact=f_ex, problem_bytes=problem_bytes(solver_p.probs),
+        loops=loops, launches=launches["polish_rim100k"], eager=eager,
+        graph_vs_eager=rel, card=card)
     del st
     paths["rim100k_prox"]["choices"] = phase_segment_choices(solver_p, init,
                                                              card)
@@ -1743,6 +1795,13 @@ SPLIT_100K_RTOL = 1e-5
 # Collective timeout of the spawned groups (a rank that waits this long for
 # the others raises) and the deadline of a whole spawn.
 SHARDED_TIMEOUT, SHARDED_DEADLINE = 180.0, 900.0
+# How far K1 / K2 launches (and collectives, where the master fallbacks
+# differ) per step may part between the graph and host-read routes of one
+# sharded run: each follows the refinement gate, restarts and fallbacks,
+# which float32 rounding in the card's scatter order flips on a few steps
+# (nccl1 rim on an H100 80GB HBM3 at 700 W: K1 1.013 vs 0.947, K2 2.053
+# vs 2.007 per step).
+LAUNCH_SPREAD = 0.1
 
 
 def _sync(device):
@@ -1794,17 +1853,81 @@ def sharded_polish(solver, st, kw, device) -> dict:
             "poses": solver.pose_split().hi - solver.pose_split().lo}
 
 
+def probe_nccl_conditional(comm, device) -> dict:
+    """Can an NCCL collective be captured inside a conditional node's body?
+    On this rank's group (`comm`, spmd.Collectives), each case captured
+    alone (graph_nodes.warm_and_capture), replayed once and held against
+    the same code run eagerly: an all_reduce and an all_gather at the top
+    level of a graph (the control), inside an IF body, and inside a WHILE
+    body of three trips. Returns {case: "ok" or what failed}."""
+    import torch
+
+    from dpgo_tpu_torch.ops import graph_nodes
+    from dpgo_tpu_torch.utils import bounded_while, device_cond
+
+    x = torch.arange(1.0, 9.0, device=device)
+    one = torch.ones((), dtype=torch.int64, device=device)
+
+    def reduce(v):
+        return comm.all_reduce(v)
+
+    def gather(v):
+        return comm.all_gather(v[None])[comm.rank]
+
+    def in_if(op):
+        return lambda: device_cond(x.sum() > 0, lambda: op(2.0 * x),
+                                   lambda: 0.0 * x)
+
+    def in_while(op):
+        def body(c, running):
+            return (op(c[0]) + 1.0, c[1] + 1)
+        return lambda: bounded_while(
+            3, lambda c: (c[1] < 4)[None], body, (x, one))[0]
+
+    cases = {"top_all_reduce": lambda: reduce(2.0 * x),
+             "top_all_gather": lambda: gather(2.0 * x),
+             "if_all_reduce": in_if(reduce), "if_all_gather": in_if(gather),
+             "while_all_reduce": in_while(reduce),
+             "while_all_gather": in_while(gather)}
+    out = {}
+    for name, fn in cases.items():
+        want = fn().clone()
+        try:
+            got, _ = graph_nodes.run_once(device, fn)
+            torch.cuda.synchronize(device)
+            out[name] = "ok" if torch.equal(got, want) else (
+                f"differs from eager: {got.tolist()} vs {want.tolist()}")
+        except RuntimeError as exc:
+            out[name] = f"{type(exc).__name__}: {str(exc)[:300]}"
+    return out
+
+
+def collective_counts() -> dict:
+    """Collectives, their bytes and host copies since the last reset, from
+    the device counters spmd.Collectives bumps inside each collective
+    (inside a captured step too, at every replay)."""
+    from dpgo_tpu_torch.parallel.spmd import Collectives
+    from dpgo_tpu_torch.utils import DeviceCounters
+    return {n: DeviceCounters.read(n) for n in Collectives.COUNTERS}
+
+
 def sharded_rank(rank, world_size, device, jobs, card):
     """One rank of the sharded phase: for each job, build the sharded
     solver on this rank's nodes once (in the job's type, float32 unless it
     names another), then for each of the job's runs (a halo strategy and a
     step count, the deterministic ones last) reset the kernel and
     collective counts, initialize from the job's start, run the steps with
-    history and read the counts. A run with `polish` (polish keywords) then
-    polishes the state it reached (sharded_polish). A `timed` run then runs
-    the steps again from the same start without history, timed (as
-    run_slice times the single-process paths); a run with `profile` (at,
-    steps) adds profile_path's window. Returns one record per run."""
+    history and read the counts (device counters; the Python totals too,
+    which equal them on the host-read route). Over NCCL the steps take the
+    graph route (the step captured, replayed once per step); over gloo the
+    host-read route. A run with `polish` (polish keywords) then polishes
+    the state it reached (sharded_polish). A `timed` run then runs the
+    steps again from the same start without history, timed (as run_slice
+    times the single-process paths); a run with `eager` then runs them on
+    the host-read route with history, timed; a run with `profile` (at,
+    steps) adds profile_path's window (and the host-read route's, with
+    `eager`). Over NCCL the first record also carries the answer of
+    probe_nccl_conditional. Returns one record per run."""
     import numpy as np
     import torch
 
@@ -1817,6 +1940,7 @@ def sharded_rank(rank, world_size, device, jobs, card):
     # The ranks share the host's cores.
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
     out = []
+    probe = None
     for job in jobs:
         cls = (spmd.ShardedDPGOStarSolver if job["cls"] == "star"
                else spmd.ShardedDPGOSolver)
@@ -1829,6 +1953,8 @@ def sharded_rank(rank, world_size, device, jobs, card):
                    device=device)
         _sync(device)
         build_s = time.perf_counter() - t0
+        if probe is None and base.comm.backend == "nccl":
+            probe = probe_nccl_conditional(base.comm, device)
         for run in job["runs"]:
             if run["deterministic"]:
                 torch.use_deterministic_algorithms(True, warn_only=True)
@@ -1863,17 +1989,26 @@ def sharded_rank(rank, world_size, device, jobs, card):
             _sync(device)
             secs = time.perf_counter() - t0
             launches = kernel_counts()
+            coll = collective_counts()
             fh = f.cpu().numpy()
             rec.update({
+                "route": "graph" if solver._graph_route() else "host",
                 "history_it_s": steps / secs, "it_s": steps / secs,
                 "host_syncs_per_step": (solver.syncs.count - syncs0) / steps,
                 "f2": fh,
                 "finite": bool(np.isfinite(fh).all()
                                and torch.isfinite(st.Z.t).all()
                                and torch.isfinite(st.Z.R).all()),
-                "collectives_per_step": comm.calls / steps,
-                "bytes_per_step": comm.bytes / steps,
-                "host_copies_per_step": comm.host_copies / steps,
+                "collectives_per_step": coll["collectives"] / steps,
+                "bytes_per_step": coll["collective_bytes"] / steps,
+                "host_copies_per_step":
+                    coll["collective_host_copies"] / steps,
+                "device_counts": coll,
+                "python_counts": {"collectives": comm.calls,
+                                  "collective_bytes": comm.bytes,
+                                  "collective_host_copies":
+                                      comm.host_copies},
+                "graph": solver.graph_stats(),
                 "k1": launches["stpcg"], "k2": launches["polar_so3"],
                 "fallbacks": dict(getattr(solver, "fallbacks", {})),
                 "deterministic": run["deterministic"], "timed": False})
@@ -1890,16 +2025,53 @@ def sharded_rank(rank, world_size, device, jobs, card):
                 rec.update(it_s=steps / (time.perf_counter() - t0),
                            host_syncs_per_step=(solver.syncs.count - syncs0)
                            / steps, timed=True)
+            if run.get("eager"):
+                rec["eager"] = sharded_eager_run(solver, job["init"], steps,
+                                                 device)
             if run.get("profile"):
-                rec["profile"] = profile_path(
-                    f"sharded {run['key']} rank {rank} ({comm.backend})",
-                    solver, job["init"], card, *run["profile"])
+                label = f"sharded {run['key']} rank {rank} ({comm.backend})"
+                rec["profile"] = profile_path(label, solver, job["init"],
+                                              card, *run["profile"])
+                if run.get("eager"):
+                    rec["profile_eager"] = profile_path(
+                        label, solver, job["init"], card, *run["profile"],
+                        eager=True)
             out.append(rec)
             del solver, st
         del base
     # Seconds from the call to the return, on the last record.
     out[-1]["rank_s"] = time.perf_counter() - t_rank
+    out[0]["probe"] = probe
     return out
+
+
+def sharded_eager_run(solver, init, steps, device) -> dict:
+    """`steps` steps with history on the host-read route
+    (run_steps_history_eager) from `init`, timed: it/s, host syncs,
+    collectives, bytes and host copies per step (device counters), K1 and
+    K2 launches, master fallbacks and the 2f history."""
+    import numpy as np
+
+    st = solver.initialize(*init)
+    _sync(device)
+    reset_counts()
+    if hasattr(solver, "reset_fallbacks"):
+        solver.reset_fallbacks()
+    syncs0 = solver.syncs.count
+    t0 = time.perf_counter()
+    _, _, (f, _) = solver.run_steps_history_eager(st, 0, steps)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches, coll = kernel_counts(), collective_counts()
+    fh = f.cpu().numpy()
+    return {"it_s": steps / secs,
+            "host_syncs_per_step": (solver.syncs.count - syncs0) / steps,
+            "collectives_per_step": coll["collectives"] / steps,
+            "bytes_per_step": coll["collective_bytes"] / steps,
+            "host_copies_per_step": coll["collective_host_copies"] / steps,
+            "k1": launches["stpcg"], "k2": launches["polar_so3"],
+            "fallbacks": dict(getattr(solver, "fallbacks", {})),
+            "f2": fh, "finite": bool(np.isfinite(fh).all())}
 
 
 def _runs(prefix, halos, steps, deterministic=False, timed=False):
@@ -1950,11 +2122,18 @@ def sharded_paths(card, rim, rim_init, rim_est, big, big_init, refs, paths,
                                              tcg=POLISH_TCG, coarse=True))])
     rim_job = dict(meas=rim, init=rim_init, cls="hash",
                    runs=_runs("rim", ["boundary"], SHARDED_STEPS, timed=True))
-    # NCCL at world size 1 also profiles rim's window (its it/s beside the
-    # single process's).
-    rim_profiled = dict(rim_job, runs=[dict(r, profile=(PROFILE_AT,
-                                                         PROFILE_STEPS))
+    star_job = dict(meas=rim, init=rim_init, cls="star",
+                    runs=_runs("star", ["boundary"], SHARDED_STAR_STEPS,
+                               timed=True))
+    # NCCL at world size 1 (the graph route) also runs rim and AMM-PGO* on
+    # the host-read route in the same rank, and profiles rim's window on
+    # both routes (their it/s beside the single process's).
+    rim_profiled = dict(rim_job, runs=[dict(r, eager=True,
+                                            profile=(PROFILE_AT,
+                                                     PROFILE_STEPS))
                                        for r in rim_job["runs"]])
+    star_eager = dict(star_job, runs=[dict(r, eager=True)
+                                      for r in star_job["runs"]])
     jobs4 = [
         # Two runs of one strategy, then each strategy, in the default mode
         # and (last) under deterministic algorithms.
@@ -1962,9 +2141,7 @@ def sharded_paths(card, rim, rim_init, rim_est, big, big_init, refs, paths,
              + _runs("halos", halos, SHARDED_HALO_STEPS)
              + _runs("halos_deterministic", halos, SHARDED_HALO_STEPS,
                      deterministic=True)),
-        dict(meas=rim, init=rim_init, cls="star",
-             runs=_runs("star", ["boundary"], SHARDED_STAR_STEPS,
-                        timed=True)),
+        star_job,
         dict(meas=big, init=big_init, cls="hash", tnt={"max_iterations": 0},
              runs=[dict(r, polish=dict(outer=POLISH_100K_OUTER,
                                        tcg=POLISH_100K_TCG, coarse=False))
@@ -1974,7 +2151,8 @@ def sharded_paths(card, rim, rim_init, rim_est, big, big_init, refs, paths,
     ]
     # The deterministic runs go last: the setting stays on in the process.
     jobs4 = jobs4[1:] + jobs4[:1]
-    runs = [("nccl1", "nccl", ["cuda:0"], [rim_profiled, polish_job]),
+    runs = [("nccl1", "nccl", ["cuda:0"], [rim_profiled, star_eager,
+                                          polish_job]),
             ("gloo4", "gloo", ["cuda:0"] * 4, jobs4)]
     if torch.cuda.device_count() >= 4:
         runs.append(("nccl4", "nccl", [f"cuda:{r}" for r in range(4)],
@@ -2002,6 +2180,13 @@ def sharded_paths(card, rim, rim_init, rim_est, big, big_init, refs, paths,
                   f"before the spawn, {single[1]:.2f} just after; rank 0's "
                   f"rim {r0['it_s']:.2f} it/s is {ratio:.3f} x their mean")
         rank_s = max(recs[-1]["rank_s"] for recs in res)
+        probe = res[0][0]["probe"]
+        if probe is not None:
+            print(f"sharded {name} probe [{card}]: NCCL collectives captured "
+                  "inside conditional-node bodies, each held equal to eager: "
+                  + ", ".join(f"{k} {v}" for k, v in probe.items()))
+            check(all(v == "ok" for v in probe.values()), f"sharded {name}: "
+                  f"an NCCL collective in a conditional body failed: {probe}")
         print(f"sharded {name} [{card}]: {len(devices)} rank(s) on "
               f"{devices}, backend {res[0][0]['backend']}, spawn "
               f"{secs:.1f} s, of which in the ranks' function {rank_s:.1f} s "
@@ -2075,7 +2260,12 @@ def _sharded_record(label, mine, refs, card):
     """Check and print one sharded run (one record per rank): equal
     histories on every rank, finite, the kernels launched on every rank,
     and the 2f history held to the single-process run's (rim's for the
-    halo strategies' runs)."""
+    halo strategies' runs). On the graph route: no host sync; with its
+    host-read run (`eager`) in the same rank, the 2f histories within 1e-3
+    at every step, and K1 / K2 launches and collectives per step (device
+    counters) within LAUNCH_SPREAD (collectives exactly where the master
+    took the same fallbacks). On the host-read route the device counts of
+    the collectives equal the Python totals."""
     import numpy as np
 
     key = mine[0]["key"]
@@ -2090,6 +2280,14 @@ def _sharded_record(label, mine, refs, card):
             check(r["k1"] > 0, f"{label}: rank {r['rank']} launched no K1")
         check(r["fallbacks"] == mine[0]["fallbacks"],
               f"{label}: the ranks' master fallbacks differ")
+        if r["route"] == "graph":
+            check(r["host_syncs_per_step"] == 0, f"{label}: rank "
+                  f"{r['rank']} read the card on the host on the graph "
+                  f"route: {r['host_syncs_per_step']} per step")
+        else:
+            check(r["device_counts"] == r["python_counts"], f"{label}: the "
+                  f"collectives' device counts {r['device_counts']} differ "
+                  f"from the Python totals {r['python_counts']}")
     single = refs[next((k for k in ("rim100k_prox", "star")
                         if key.startswith(k)), "rim")]
     ref = single["f2_history"]
@@ -2113,7 +2311,19 @@ def _sharded_record(label, mine, refs, card):
           + (f"; fallbacks {r0['fallbacks']}" if r0["fallbacks"] else ""))
     check(gap <= 1e-3, f"{label}: 2f parts from the single-process run by "
           f"{gap} > 1e-3")
+    eager = r0.get("eager")
+    if eager is not None:
+        _graph_vs_eager(label, r0, eager, steps=len(f), card=card)
+    if r0["graph"] is not None:
+        g = r0["graph"]
+        print(f"{label} [{card}]: route {r0['route']}, step captured in "
+              f"{g['capture_s']:.2f} s after a {g['warmup_s']:.2f} s "
+              f"warm-up; pools {g['pool_bytes'] / 2**20:.1f} MiB")
     return {"it_s": [r["it_s"] for r in mine], "timed": r0["timed"],
+            "route": r0["route"], "graph": r0["graph"],
+            "eager": None if eager is None else {
+                k: v for k, v in eager.items() if k != "f2"},
+            "profile_eager": r0.get("profile_eager"),
             "history_it_s": [r["history_it_s"] for r in mine],
             "single_process_it_s": single["it_s"],
             "host_syncs_per_step": r0["host_syncs_per_step"],
@@ -2128,6 +2338,40 @@ def _sharded_record(label, mine, refs, card):
             "init_s": [r["init_s"] for r in mine],
             "fallbacks": r0["fallbacks"], "backend": r0["backend"],
             "deterministic": r0["deterministic"], "f2": f.tolist()}
+
+
+def _graph_vs_eager(label, r0, eager, steps, card):
+    """Rank 0's graph-route run against its host-read run from the same
+    start in the same rank (module docstring, 10): printed and held."""
+    import numpy as np
+
+    f, fe = r0["f2"], eager["f2"]
+    gap = float(np.max(np.abs(f - fe) / np.abs(fe)))
+    per = {n: (r0[n] / steps, eager[n] / steps) for n in ("k1", "k2")}
+    per["collectives"] = (r0["collectives_per_step"],
+                          eager["collectives_per_step"])
+    print(f"{label} graph vs host-read route, same rank [{card}]: "
+          f"{r0['it_s']:.2f} vs {eager['it_s']:.2f} it/s "
+          f"({r0['it_s'] / eager['it_s']:.2f} x); host syncs/step "
+          f"{r0['host_syncs_per_step']:.2f} vs "
+          f"{eager['host_syncs_per_step']:.2f}; per step K1 "
+          f"{per['k1'][0]:.3f} vs {per['k1'][1]:.3f}, K2 {per['k2'][0]:.3f} "
+          f"vs {per['k2'][1]:.3f}, collectives {per['collectives'][0]:.3f} "
+          f"vs {per['collectives'][1]:.3f}, bytes {r0['bytes_per_step']:.0f}"
+          f" vs {eager['bytes_per_step']:.0f}; fallbacks {r0['fallbacks']} "
+          f"vs {eager['fallbacks']}; 2f largest relative gap over {steps} "
+          f"steps {gap:.3e}")
+    check(eager["finite"], f"{label}: the host-read run is not finite")
+    check(gap <= 1e-3, f"{label}: the graph route's 2f parts from the "
+          f"host-read route's by {gap} > 1e-3")
+    check(r0["route"] == "graph" and eager["host_syncs_per_step"] > 0,
+          f"{label}: not a graph route against a host-read route")
+    for name, (a, b) in per.items():
+        if name == "collectives" and r0["fallbacks"] == eager["fallbacks"]:
+            check(a == b, f"{label}: {a} collectives per step on the graph "
+                  f"route, {b} on the host-read route")
+        check(abs(a - b) <= LAUNCH_SPREAD, f"{label}: {name} per step {a} "
+              f"on the graph route, {b} on the host-read route")
 
 
 def _sharded_polish_record(label, key, recs, refs, card, same=None):

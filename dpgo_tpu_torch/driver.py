@@ -22,7 +22,6 @@ Two routes for the same step (utils.py, "control flow"):
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -281,17 +280,30 @@ class DPGOSolver:
 
     def run_steps_history_eager(self, st: MMState, k0: int, num_steps: int):
         """run_steps_history on the host-read route."""
-        fs, gs = [], []
+        pairs = []
         for i in range(num_steps):
             st = self._step(st, k0 + i)
-            fs.append(torch.sum(st.fobj))
-            gs.append(torch.sum(st.gradFnorm * st.gradFnorm))
-        if not fs:
+            pairs.append(torch.stack([torch.sum(st.fobj),
+                                      torch.sum(st.gradFnorm
+                                                * st.gradFnorm)]))
+        if not pairs:
+            return st, k0, self._history(None)
+        return st, k0 + num_steps, self._history(torch.stack(pairs))
+
+    def _history(self, pairs):
+        """(2f [S], 2|grad| [S]) from this process's per-step pairs
+        [S, 2] = (sum fobj, sum gradFnorm^2) over its nodes (None: no
+        step), summed over the ranks in one collective (either route)."""
+        if pairs is None:
             empty = torch.zeros(0, dtype=self.dtype, device=self.device)
-            return st, k0, (empty, empty)
-        h = self._sum_over_ranks(torch.stack([torch.stack(fs),
-                                              torch.stack(gs)]))
-        return st, k0 + num_steps, (2.0 * h[0], 2.0 * torch.sqrt(h[1]))
+            return empty, empty
+        h = self._sum_over_ranks(pairs)
+        return 2.0 * h[:, 0], 2.0 * torch.sqrt(h[:, 1])
+
+    def _graph_route(self) -> bool:
+        """Whether run_steps / run_steps_history and the polish take the
+        graph route: on a CUDA card."""
+        return self.device.type == "cuda"
 
     def run_steps(self, st: MMState, k0: int, num_steps: int):
         """`num_steps` solver iterations; returns (state, k0 + num_steps).
@@ -299,13 +311,13 @@ class DPGOSolver:
         `num_steps` times, no host read in between (the returned state is a
         copy, never overwritten by a later call); on the CPU the host-read
         route (`run_steps_eager`)."""
-        if self.device.type != "cuda":
+        if not self._graph_route():
             return self.run_steps_eager(st, k0, num_steps)
         if num_steps <= 0:
             return st, k0
         g = self._step_graph(st, k0)
         for _ in range(num_steps):
-            g.graph.replay()
+            g.replay()
         return g.result(), k0 + num_steps
 
     def run_steps_history(self, st: MMState, k0: int, num_steps: int):
@@ -315,29 +327,29 @@ class DPGOSolver:
         the rms over nodes. Returns (state, k, (f [num_steps],
         g [num_steps])). On a CUDA card the graph route (the captured step
         writes each step's pair at its device step index); on the CPU the
-        host-read route (`run_steps_history_eager`)."""
-        if self.device.type != "cuda":
+        host-read route (`run_steps_history_eager`). The sharded solvers
+        sum the history over the ranks once per call, after the replays."""
+        if not self._graph_route():
             return self.run_steps_history_eager(st, k0, num_steps)
         if num_steps <= 0:
-            empty = torch.zeros(0, dtype=self.dtype, device=self.device)
-            return st, k0, (empty, empty)
+            return st, k0, self._history(None)
         g = self._step_graph(st, k0)
         cap = g.hist.shape[0]
         chunks = []
         for i in range(num_steps):
-            g.graph.replay()
+            g.replay()
             if (i + 1) % cap == 0 or i + 1 == num_steps:
                 chunks.append(g.hist[:i % cap + 1].clone())
-        h = torch.cat(chunks)
-        return (g.result(), k0 + num_steps,
-                (2.0 * h[:, 0], 2.0 * torch.sqrt(h[:, 1])))
+        return g.result(), k0 + num_steps, self._history(torch.cat(chunks))
 
     def _graph_key(self, st) -> tuple:
-        """What a captured step depends on besides the state's values: the
-        problems, options and gauge tensors it reads, the state's
-        shapes."""
-        return (self.probs, self.opts, self.halo_dc, self.edges,
-                tuple((tuple(x.shape), x.dtype) for x in flatten(st)[0]))
+        """What a captured step depends on besides the state's values, as
+        (objects held by identity, values held by equality): the problems,
+        gauge tensors and edges it reads; the options and the state's
+        shapes (the sharded solvers add their halo strategy)."""
+        return ((self.probs, self.halo_dc, self.edges),
+                (self.opts, tuple((tuple(x.shape), x.dtype)
+                                  for x in flatten(st)[0])))
 
     def _step_graph(self, st, k0: int) -> "_StepGraph":
         """The captured step (captured now when there is none or its key
@@ -348,6 +360,7 @@ class DPGOSolver:
         if g is None or not g.matches(key):
             self._graph = None
             g = _StepGraph(self, st, k0, key)
+            g.capture(self)
             self._graph = g
         g.load(self, st, k0)
         self._reweighted = (None, self.probs)
@@ -356,10 +369,11 @@ class DPGOSolver:
     def graph_stats(self) -> dict | None:
         """Of the captured step: capture seconds (warm-up included), bytes
         its two memory pools hold on the card, None before a capture."""
-        g = self._graph
-        return None if g is None else {"capture_s": g.capture_s,
-                                       "warmup_s": g.warmup_s,
-                                       "pool_bytes": g.pool_bytes}
+        if self._graph is None:
+            return None
+        c = self._graph.captured
+        return {"capture_s": c.capture_s, "warmup_s": c.warmup_s,
+                "pool_bytes": c.pool_bytes}
 
     def step_flops(self, st, k: int = 0) -> int:
         """Floating-point operations of one solver step from `st`
@@ -441,7 +455,8 @@ class DPGOSolver:
 
     def polish(self, st: MMState, outer: int = 20, tcg: int = 500,
                node_precon: bool = True, coarse: bool = False,
-               coarse_segments: tuple = (), params=None):
+               coarse_segments: tuple = (), params=None,
+               eager: bool = False):
         """Global second-order tail polish: gather the full pose state, run
         Riemannian TNT on the coupled problem (solvers/polish.py) on this
         solver's device and type, and re-initialize the solver at the
@@ -455,8 +470,13 @@ class DPGOSolver:
         path, which needs the node preconditioner as its base level. The
         retraction's SO(3) projection follows `self.probs.kernels` (K2).
         `params` (TNTParams) replaces polish_params(outer, tcg).
-        `polish_stats` then holds the run's outer and CG iterations and its
-        TNT history."""
+        `polish_stats` then holds the run's outer and CG iterations, its
+        TNT history and its route.
+
+        On a CUDA card the TNT runs as one captured program (its outer loop
+        and STPCG WHILE nodes), replayed once, and the host reads nothing
+        until its result; `eager=True`, or the CPU, takes the host-read
+        route (each loop flag read on the host, `syncs`)."""
         if params is None:
             params = polish_mod.polish_params(outer=outer, tcg=tcg)
         coarse_segments = tuple(coarse_segments)
@@ -467,31 +487,42 @@ class DPGOSolver:
                 "polish(coarse=True / coarse_segments=...) needs the "
                 "node-block preconditioner as the hierarchy's base level; "
                 "pass node_precon=True")
-        t2, R2, fx, stats = self._polish_tnt(st, params, node_precon, coarse,
-                                             coarse_segments)
+        t2, R2, fx, stats = self._polish_tnt(
+            st, params, node_precon, coarse, coarse_segments,
+            graph=not eager and self._graph_route())
         self.polish_stats = stats
         st2 = self.initialize(t2.cpu().numpy(), R2.cpu().numpy())
         return st2, 2.0 * float(fx)
 
     def _polish_tnt(self, st: MMState, params, node_precon: bool,
-                    coarse: bool, coarse_segments: tuple):
+                    coarse: bool, coarse_segments: tuple, graph: bool):
         """The polish's TNT on the whole gathered pose state: the split
-        model (polish.split_tnt_model) with one share holding every pose.
-        Returns the global (t, R), f and the stats (the sharded solvers
-        split the pose axis here)."""
+        model (polish.split_tnt_model) with one share holding every pose,
+        captured with `graph`. Returns the global (t, R), f and the stats,
+        with the host flag reads of the TNT and its set-up (the sharded
+        solvers split the pose axis here)."""
         t, R = self.gather_global(st)
         share = SplitEdges.build(self.edges, self.part.node_of, 0,
                                  self.num_nodes)
-        return self._run_polish_tnt(share, (t, R), params, node_precon,
-                                    coarse, coarse_segments)
+        syncs0 = self.syncs.count
+        t2, R2, fx, stats = self._run_polish_tnt(
+            share, (t, R), params, node_precon, coarse, coarse_segments,
+            graph=graph)
+        stats["tnt_host_syncs"] = self.syncs.count - syncs0
+        return t2, R2, fx, stats
 
     def _run_polish_tnt(self, share: SplitEdges, x0, params,
                         node_precon: bool, coarse: bool,
-                        coarse_segments: tuple, exchange=None, reduce=None):
+                        coarse_segments: tuple, exchange=None, reduce=None,
+                        graph: bool = False):
         """TNT from x0, the own rows of `share` (a range of nodes), on the
         split model with the node-block preconditioner on this solver's
         problems and the rigid coarse levels; `exchange` and `reduce` as in
-        split_tnt_model (None: one process). Returns (t, R, f, stats)."""
+        split_tnt_model (None: one process). The model and preconditioners
+        are built first, on the host-read route (they copy host arrays to
+        the card); then the TNT runs, with `graph` as one captured program
+        replayed once (graph_nodes.run_once), and its history is read after
+        it. Returns (t, R, f, stats)."""
         def make_model(precondition):
             return polish_mod.split_tnt_model(
                 share, exchange, reduce, self.loss, self.loss_reg,
@@ -523,14 +554,23 @@ class DPGOSolver:
                                (dev(piece[rows]), dev(seg[cut]))))
             precon = polish_mod.multilevel_rigid_preconditioner(
                 model0.hess_vp, nabla, x0, levels, precon, reduce=reduce)
-        x, fx, _, _, hist = tnt_one(make_model(precon), x0, params,
-                                    syncs=self.syncs, record=True)
+        model = make_model(precon)
+        stats = {"route": "graph" if graph else "host"}
+        if graph:
+            from dpgo_tpu_torch.ops import graph_nodes
+            out, cap = graph_nodes.run_once(
+                self.device, lambda: tnt_one(model, x0, params, record=True))
+            stats.update(capture_s=cap.capture_s, warmup_s=cap.warmup_s,
+                         pool_bytes=cap.pool_bytes)
+        else:
+            out = tnt_one(model, x0, params, syncs=self.syncs, record=True)
+        x, fx, _, _, hist = out
         n = int(hist.count)
-        stats = {"outer": n,
-                 "cg_iterations": int(hist.inner_iterations[:n].sum()),
-                 "history": {k: getattr(hist, k)[:n].cpu().numpy()
-                             for k in ("fx", "Delta", "inner_iterations",
-                                       "rho", "accepted")}}
+        stats.update(outer=n,
+                     cg_iterations=int(hist.inner_iterations[:n].sum()),
+                     history={k: getattr(hist, k)[:n].cpu().numpy()
+                              for k in ("fx", "Delta", "inner_iterations",
+                                        "rho", "accepted")})
         return x[0], x[1], fx, stats
 
     def refine_stats(self, st: MMState) -> dict:
@@ -649,23 +689,17 @@ class _StepGraph:
     next state back into them, with the step index `k` (int32) and, under
     dynamic rescale, the reweighted problems' tensors (the problems the
     next iterate runs on) carried the same way, so the rescale rebuilds
-    inside the replay. It also writes (sum fobj, sum gradFnorm^2) into the
-    ring `hist` at the device step index `pos`. Its branches and bounded
-    loops are conditional nodes (utils.device_cond / bounded_while on the
-    "capture" route); K1 and K2 launch inside it and bump their device
-    counters at every replay.
-
-    Before the capture, one step on the "warm" route (both branches, one
-    trip per loop, results thrown away, device counters restored) runs
-    every operation once, so that no lazy set-up (the kernel library, K1's
-    occupancy query, cuBLAS handles) happens inside the capture, under
-    torch.cuda.set_sync_debug_mode("error"), so that a host read in the
-    step raises there."""
+    inside the replay. It also writes this process's (sum fobj,
+    sum gradFnorm^2) into the ring `hist` at the device step index `pos`.
+    Its branches and bounded loops are conditional nodes (utils.device_cond
+    / bounded_while on the "capture" route); K1, K2 and the sharded
+    solvers' NCCL collectives launch inside it and bump their device
+    counters at every replay. The warm-up before the capture and the
+    capture itself: graph_nodes.warm_and_capture."""
 
     HISTORY = 256
 
     def __init__(self, solver: DPGOSolver, st, k0: int, key: tuple):
-        from dpgo_tpu_torch.ops import graph_nodes
         dev = solver.device
         self.key = key
         leaves, self._rebuild = flatten(st)
@@ -678,60 +712,47 @@ class _StepGraph:
         self.static_dyn = [getattr(probs, n).clone() for n in self.dyn]
         # Held for the graph's life: a NodeProblem made here also makes its
         # index tensors (__post_init__), which the graph reads.
-        self.static_probs = static_probs = (dataclasses.replace(
+        self.static_probs = (dataclasses.replace(
             probs, **dict(zip(self.dyn, self.static_dyn))) if self.dyn
             else probs)
         self.k = torch.full((), k0, dtype=torch.int32, device=dev)
         self.pos = torch.zeros((), dtype=torch.int64, device=dev)
         self.hist = torch.zeros((self.HISTORY, 2), dtype=solver.dtype,
                                 device=dev)
-        state = self._rebuild(self.static)
+        self.captured = None
 
-        t0 = time.perf_counter()
-        graph_nodes.warm_streams(dev)
-        snap = DeviceCounters.snapshot()
-        # A step that reads the card on the host cannot be captured: the
-        # warm-up raises at that read (sync debug mode), before the capture
-        # begins, so a failed capture never leaves one half made.
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with route("warm"):
-                solver._advance(static_probs, state, self.k)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.synchronize(dev)
-        DeviceCounters.restore(snap)
-        self.warmup_s = time.perf_counter() - t0
+    def capture(self, solver: DPGOSolver) -> None:
+        """Warm up and capture `body` (graph_nodes.warm_and_capture). The
+        warm-up writes its (discarded) step into the buffers; `load`
+        overwrites them before the first replay. (The graph holds no
+        reference to the solver, which holds the graph: a cycle would leave
+        the graph to the garbage collector, which may free it inside a
+        later warm-up's sync-debug window.)"""
+        from dpgo_tpu_torch.ops import graph_nodes
+        self.captured = graph_nodes.warm_and_capture(
+            solver.device, lambda: self.body(solver))
 
-        # (torch.cuda.graph empties the cache on entry too.)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        pool = torch.cuda.graph_pool_handle()
-        t0 = time.perf_counter()
-        with graph_nodes.capture(self.graph, dev, pool) as body_pool, \
-                route("capture"):
-            nxt, probs2 = solver._advance(static_probs, state, self.k)
-            pair = torch.stack([torch.sum(nxt.fobj),
-                                torch.sum(nxt.gradFnorm * nxt.gradFnorm)])
-            self.hist.index_copy_(
-                0, torch.remainder(self.pos, self.HISTORY).reshape(1),
-                pair[None].to(self.hist.dtype))
-            self.pos.add_(1)
-            _copy_into(self.static + self.static_dyn,
-                       flatten(nxt)[0] + [getattr(probs2, n)
-                                          for n in self.dyn])
-            self.k.add_(1)
-        torch.cuda.synchronize(dev)
-        self.body_pool = body_pool
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+    def body(self, solver: DPGOSolver) -> None:
+        """One step from the static buffers back into them (what the graph
+        records)."""
+        nxt, probs2 = solver._advance(self.static_probs,
+                                      self._rebuild(self.static), self.k)
+        pair = torch.stack([torch.sum(nxt.fobj),
+                            torch.sum(nxt.gradFnorm * nxt.gradFnorm)])
+        self.hist.index_copy_(
+            0, torch.remainder(self.pos, self.HISTORY).reshape(1),
+            pair[None].to(self.hist.dtype))
+        self.pos.add_(1)
+        _copy_into(self.static + self.static_dyn,
+                   flatten(nxt)[0] + [getattr(probs2, n) for n in self.dyn])
+        self.k.add_(1)
+
+    def replay(self) -> None:
+        self.captured.graph.replay()
 
     def matches(self, key: tuple) -> bool:
-        a, b = self.key, key
-        return (a[0] is b[0] and a[1] == b[1] and a[2] is b[2]
-                and a[3] is b[3] and a[4] == b[4])
+        return (all(a is b for a, b in zip(self.key[0], key[0]))
+                and self.key[1] == key[1])
 
     def load(self, solver: DPGOSolver, st, k0: int) -> None:
         """Copy state `st` (and its problems under dynamic rescale) into the

@@ -27,11 +27,14 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import gc
+import time
 
 import torch
 
 from dpgo_tpu_torch.ops import _build
-from dpgo_tpu_torch.utils import DeviceCounters
+from dpgo_tpu_torch.utils import DeviceCounters, flatten, route
 
 IF, WHILE = 0, 1
 
@@ -83,13 +86,17 @@ def capture(graph: torch.cuda.CUDAGraph, device: torch.device, pool):
     """`torch.cuda.graph(graph, pool=pool)` on `device`. The allocations of
     the conditional bodies (on child streams, which the capture's own pool
     routing does not match) go to a second private pool, yielded: keep it
-    as long as the graph."""
+    as long as the graph. The capture mode is thread-local, as the bodies'
+    are: other threads of the process (ProcessGroupNCCL's watchdog, which
+    queries the events of earlier collectives) may call the runtime while
+    the capture is underway."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     if _Capture.active is not None:
         raise RuntimeError("a graph capture is already underway")
     body_pool = torch.cuda.MemPool()
-    with torch.cuda.device(index), torch.cuda.graph(graph, pool=pool):
+    with torch.cuda.device(index), torch.cuda.graph(
+            graph, pool=pool, capture_error_mode="thread_local"):
         torch._C._cuda_beginAllocateCurrentThreadToPool(index, body_pool.id)
         _Capture.active = (index, pool)
         try:
@@ -142,3 +149,72 @@ def again(handle: int, flag: torch.Tensor) -> None:
     _build.check(_build.load().dpgo_cond_set(handle, flag.data_ptr(), stream),
                  "graph conditional set")
     DeviceCounters.bump("graph_cond", flag.device)
+
+
+@dataclasses.dataclass
+class Captured:
+    """A program captured by `warm_and_capture`: the graph, what the
+    captured call returned (tensors the graph writes at every replay), the
+    body pool to keep beside the graph, and the seconds and bytes it
+    took."""
+
+    graph: torch.cuda.CUDAGraph
+    out: object
+    body_pool: object
+    warmup_s: float
+    capture_s: float
+    pool_bytes: int
+
+
+def warm_and_capture(device: torch.device, fn) -> Captured:
+    """Capture `fn()` as one CUDA graph on `device` (its `device_cond` and
+    `bounded_while` become IF and WHILE nodes).
+
+    First one call on the "warm" route (both branches, one trip per loop,
+    its result thrown away, the device counters restored), so that no lazy
+    set-up (the kernel library, K1's occupancy query, cuBLAS handles, an
+    NCCL communicator) happens inside the capture, under
+    torch.cuda.set_sync_debug_mode("error"), so that a host read in `fn`
+    raises there, before the capture begins: a failed capture never leaves
+    one half made. Then the capture, which raises if the runtime refuses
+    an operation; there is no fallback to the host-read route."""
+    t0 = time.perf_counter()
+    warm_streams(device)
+    snap = DeviceCounters.snapshot()
+    # Garbage first: freeing a graph synchronizes, which under the
+    # sync-debug mode below raises inside a destructor (an abort).
+    gc.collect()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with route("warm"):
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize(device)
+    DeviceCounters.restore(snap)
+    warmup_s = time.perf_counter() - t0
+
+    # (torch.cuda.graph empties the cache on entry too.)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with capture(graph, device, torch.cuda.graph_pool_handle()) \
+            as body_pool, route("capture"):
+        out = fn()
+    torch.cuda.synchronize(device)
+    return Captured(graph=graph, out=out, body_pool=body_pool,
+                    warmup_s=warmup_s, capture_s=time.perf_counter() - t0,
+                    pool_bytes=torch.cuda.memory_reserved(device) - reserved)
+
+
+def run_once(device: torch.device, fn):
+    """`fn()` captured (`warm_and_capture`) and replayed once: a copy of
+    what it returns (a tree of tensors, `utils.flatten`), made after the
+    replay on the same stream, and the Captured record. Nothing is read on
+    the host."""
+    cap = warm_and_capture(device, fn)
+    cap.graph.replay()
+    leaves, rebuild = flatten(cap.out)
+    return rebuild([x.clone() for x in leaves]), cap

@@ -49,6 +49,7 @@ from dpgo_tpu_torch.driver import DPGOSolver, DPGOStarSolver
 from dpgo_tpu_torch.graph import MultiGraph
 from dpgo_tpu_torch.objective import SplitEdges
 from dpgo_tpu_torch.problem import NodeState
+from dpgo_tpu_torch.utils import DeviceCounters
 
 HALO_STRATEGIES = ("gather", "boundary", "ring")
 
@@ -128,7 +129,14 @@ class Collectives:
     `calls` counts collectives (a ring round is one), `bytes` the bytes each
     landed in this rank's output buffer (its own share included), and
     `host_copies` the copies to and from the host that gloo needs for
-    tensors on a CUDA card."""
+    tensors on a CUDA card. These Python totals move when the host issues a
+    collective: per step on the host-read route, but only at the warm-up
+    and the capture on the graph route. The same counts are bumped on the
+    device (`utils.DeviceCounters`: COUNTERS), where a captured collective
+    counts at every replay, and a collective in a branch the trace route
+    merges away counts nowhere, as on the host route."""
+
+    COUNTERS = ("collectives", "collective_bytes", "collective_host_copies")
 
     def __init__(self, group=None, device=None):
         self.group = group
@@ -147,19 +155,26 @@ class Collectives:
     def _wire(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         if self.staged:
-            self.host_copies += 1
+            self._copied()
             return x.cpu()
         return x
 
     def _back(self, x: torch.Tensor) -> torch.Tensor:
         if self.staged:
-            self.host_copies += 1
+            self._copied()
             return x.to(self.device)
         return x
 
+    def _copied(self) -> None:
+        self.host_copies += 1
+        DeviceCounters.bump("collective_host_copies", self.device)
+
     def _count(self, out: torch.Tensor) -> None:
+        nbytes = out.numel() * out.element_size()
         self.calls += 1
-        self.bytes += out.numel() * out.element_size()
+        self.bytes += nbytes
+        DeviceCounters.bump("collectives", self.device)
+        DeviceCounters.bump("collective_bytes", self.device, nbytes)
 
     def _peer(self, r: int) -> int:
         r %= self.world_size
@@ -390,15 +405,18 @@ class _Sharded:
 
     # ------------------------------------------------------- stepping
 
-    # The sharded solvers keep the host-read route on every device: gloo's
-    # collectives cannot be recorded into a CUDA graph (NCCL's can: the
-    # graph route over NCCL is a later step, ROADMAP).
+    def _graph_route(self) -> bool:
+        """The graph route over NCCL on a CUDA card (the halo exchange and
+        the master's all_reduces are recorded into the captured step, in
+        its IF bodies too); gloo keeps the host-read route: its
+        collectives run on the host (staged through it on a card), which a
+        CUDA graph cannot record."""
+        return self.comm.backend == "nccl" and super()._graph_route()
 
-    def run_steps(self, st, k0: int, num_steps: int):
-        return self.run_steps_eager(st, k0, num_steps)
-
-    def run_steps_history(self, st, k0: int, num_steps: int):
-        return self.run_steps_history_eager(st, k0, num_steps)
+    def _graph_key(self, st) -> tuple:
+        # The captured exchange follows the strategy it was recorded with.
+        same, equal = super()._graph_key(st)
+        return same, equal + (self.halo, self.ring_rounds)
 
     # ------------------------------------------------- collective hooks
 
@@ -448,7 +466,7 @@ class _Sharded:
         return t, st.Z.R[rows]
 
     def _polish_tnt(self, st, params, node_precon: bool, coarse: bool,
-                    coarse_segments: tuple):
+                    coarse_segments: tuple, graph: bool):
         """The polish's TNT with the pose axis split over the ranks: each
         rank starts from its own rows (in the global frame) and runs the
         split model (solvers/polish.py, split_tnt_model) with the
@@ -456,7 +474,11 @@ class _Sharded:
         sums over the ranks; one all_gather of the rows at the end. Every
         branch of TNT and STPCG reads all-reduced values, so the ranks run
         the same collectives. The stats add this rank's exchanges,
-        collectives, bytes and host copies up to that all_gather."""
+        collectives, bytes and host copies up to that all_gather.
+
+        It keeps the host-read route whatever `graph` asks: its collectives
+        sit inside STPCG's WHILE body, a capture over NCCL not yet taken
+        (ROADMAP)."""
         sp = self.pose_split()
         comm = self.comm
         calls0, bytes0, copies0 = comm.calls, comm.bytes, comm.host_copies
@@ -464,7 +486,7 @@ class _Sharded:
         t2, R2, fx, stats = self._run_polish_tnt(
             sp.edges, self.own_rows(st), params, node_precon, coarse,
             coarse_segments, exchange=self.exchange_rows,
-            reduce=comm.all_reduce)
+            reduce=comm.all_reduce, graph=False)
         stats.update(exchanges=self.row_exchanges - exchanges0,
                      collectives=comm.calls - calls0,
                      bytes=comm.bytes - bytes0,

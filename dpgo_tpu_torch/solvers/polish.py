@@ -413,9 +413,17 @@ def polish_global(edges: EdgeData, t: torch.Tensor, R: torch.Tensor,
                   params: TNTParams | None = None, precondition=None,
                   kernels: bool = True, syncs: HostSyncs | None = None):
     """Run the global trust-region polish from (t, R) on their device and
-    type (global_tnt_model). Returns (t, R, f_value)."""
+    type (global_tnt_model). Returns (t, R, f_value). On a CUDA card the
+    TNT runs as one captured program replayed once (graph_nodes.run_once:
+    no host read; `syncs` stays untouched), elsewhere on the host-read
+    route."""
     params = params or polish_params()
     model = global_tnt_model(edges, loss, loss_reg, num_poses=t.shape[0],
                              precondition=precondition, kernels=kernels)
-    x, fx, _, _ = tnt_one(model, (t, R), params, syncs=syncs)
+    if t.device.type == "cuda":
+        from dpgo_tpu_torch.ops import graph_nodes
+        (x, fx, _, _), _ = graph_nodes.run_once(
+            t.device, lambda: tnt_one(model, (t, R), params))
+    else:
+        x, fx, _, _ = tnt_one(model, (t, R), params, syncs=syncs)
     return x[0], x[1], fx

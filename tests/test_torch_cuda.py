@@ -919,3 +919,82 @@ def test_failed_capture_raises(dev):
     assert s._graph is None
     st, k = s.run_steps_eager(st0, 0, 2)
     assert k == 2 and bool(torch.isfinite(st.Z.t).all())
+
+
+# ------------------------------------------- sharded graph route over NCCL
+
+_NCCL_GRAPH = {}
+
+
+def _nccl_graph_world():
+    """tests/torch_spmd_ranks.py::nccl_graph_checks in one NCCL rank on
+    cuda:0 (grid3D_synth, 8 nodes), spawned once for the tests below."""
+    if not _NCCL_GRAPH:
+        import torch_spmd_ranks as ranks  # tests/ (pytest puts it on the path)
+
+        from dpgo_tpu_torch.parallel.launch import spawn
+        graphs = {"d3": _grid3d(), "num_nodes": 8}
+        _NCCL_GRAPH["world"] = spawn(ranks.nccl_graph_checks, 1,
+                                     backend="nccl", devices=["cuda:0"],
+                                     args=(graphs,), deadline=300.0)
+    return _NCCL_GRAPH["world"][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["acc_boundary", "star_psi"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_nccl_graph_route_matches_host_route(dev, name, dtype):
+    """ShardedDPGOSolver (AMM-PGO#) and ShardedDPGOStarSolver over NCCL at
+    world size 1 take the graph route (the step captured, NCCL
+    collectives inside, in IF bodies for AMM-PGO*), with no host flag
+    read: per-step 2f within 1e-5 relative of the host-read route in
+    float32 (the card's scatter order), 1e-10 in float64. AMM-PGO* at
+    psi = phi = 1e3, so that its master fallbacks (an exchange and an
+    all_reduce each) run inside the IF bodies."""
+    res = _nccl_graph_world()[f"{name}_{dtype}"]
+    assert res["backend"] == "nccl" and res["captured"]
+    assert res["graph_syncs"] == 0 and res["eager_syncs"] > 0
+    rtol = 1e-5 if dtype == "float32" else 1e-10
+    np.testing.assert_allclose(res["f"], res["fe"], rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_sharded_nccl_replays_read_nothing_on_the_host(dev):
+    """Once captured, run_steps of the sharded solvers over NCCL (load,
+    replays, the copy out) runs under torch.cuda.set_sync_debug_mode
+    ("error")."""
+    for key, res in _nccl_graph_world().items():
+        if key != "failed_capture":
+            assert res["replay_sync"] is None, (key, res["replay_sync"])
+
+
+@pytest.mark.cuda
+def test_sharded_nccl_failed_capture_raises(dev):
+    """A sharded step that reads the card on the host cannot be captured:
+    over NCCL run_steps raises (no quiet fall back to the host-read route)
+    and keeps no graph; the host-read route still runs."""
+    res = _nccl_graph_world()["failed_capture"]
+    assert res["raised"] is not None and "synchroniz" in res["raised"]
+    assert res["no_graph"] and res["eager_ran"]
+
+
+@pytest.mark.cuda
+def test_polish_graph_route_matches_host_route(dev):
+    """DPGOSolver.polish on the card runs its TNT as one captured program
+    (no host flag read in it) and reaches the host-read route's 2f within
+    1e-10 in float64, with the same outer iterations (grid3D_synth, 4
+    nodes, the coarse level)."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    from dpgo_tpu_torch.solvers.tnt import TNTParams
+    s = DPGOSolver(_grid3d(), num_nodes=4, dtype=torch.float64, device=dev,
+                   opts=MMOptions(tnt=TNTParams(max_iterations=0)))
+    st0, _ = s.run_steps(s.initialize(), 0, 10)
+    _, f2 = s.polish(st0, outer=5, tcg=100, coarse=True)
+    graph = s.polish_stats
+    _, f2e = s.polish(st0, outer=5, tcg=100, coarse=True, eager=True)
+    host = s.polish_stats
+    assert (graph["route"], host["route"]) == ("graph", "host")
+    assert graph["tnt_host_syncs"] == 0 and host["tnt_host_syncs"] > 0
+    assert graph["outer"] == host["outer"] == 5
+    np.testing.assert_allclose(f2, f2e, rtol=1e-10)

@@ -89,13 +89,16 @@ CASES = HASH_CASES + ["huber_dynamic", "aa", "d2", "segment", "star",
                       "star_psi", "gauge_ring"] + POLISH_CASES
 
 
-def make_solver(name: str, graphs: dict, device, sharded: bool, group=None):
+def make_solver(name: str, graphs: dict, device, sharded: bool, group=None,
+                setup=case_setup, dtype=torch.float64):
+    """(solver, setup) of a case: `setup(name)` (case_setup, or
+    trace_setup) built in `dtype` on `device`, sharded or not."""
     from dpgo_tpu_torch import driver
     from dpgo_tpu_torch.losses import Loss
     from dpgo_tpu_torch.parallel import spmd
     from dpgo_tpu_torch.solvers.mm import MMOptions
 
-    c = case_setup(name)
+    c = setup(name)
     if sharded:
         cls = (spmd.ShardedDPGOStarSolver if c["cls"] == "star"
                else spmd.ShardedDPGOSolver)
@@ -106,7 +109,7 @@ def make_solver(name: str, graphs: dict, device, sharded: bool, group=None):
         extra = {}
     return cls(graphs[c["graph"]], num_nodes=graphs["num_nodes"],
                opts=MMOptions(**c["opts"]), loss=Loss(c["loss"]),
-               loss_reg=LOSS_REG, dtype=torch.float64, device=device,
+               loss_reg=LOSS_REG, dtype=dtype, device=device,
                **c["kw"], **extra), c
 
 
@@ -357,3 +360,210 @@ def build_once(rank: int, world_size: int, device, build_dir: str,
     _build._run_all = fake_run_all
     dist.barrier()
     return _build.build()
+
+
+# ------------------------------------------------- the graph route's trace
+
+# The sharded step on the trace route (tests/test_torch_spmd_graph.py):
+# AMM-PGO# with each halo strategy and AMM-PGO* with forced fallbacks, TNT
+# cut to 4 outer and 30 CG iterations (the trace route runs every trip up
+# to the caps), as in tests/test_torch_graph_step.py.
+TRACE_CASES = ["acc_boundary", "acc_gather", "acc_ring", "star_psi"]
+TRACE_TNT = dict(max_iterations=4, max_tCG_iterations=30)
+LOOPS = ("tnt", "stpcg", "seg_cg")
+
+
+def trace_setup(name: str) -> dict:
+    """case_setup with the trace cases' TNT caps."""
+    from dpgo_tpu_torch.solvers.tnt import TNTParams
+
+    c = case_setup(name)
+    c["opts"] = dict(c["opts"], tnt=TNTParams(**TRACE_TNT))
+    return c
+
+
+def _trace_solver(name, graphs, device, sharded=True):
+    return make_solver(name, graphs, device, sharded, setup=trace_setup)[0]
+
+
+def trace_step_graph():
+    """driver._StepGraph on the trace route: nothing is captured, and a
+    replay runs the recorded body (`_StepGraph.body`) with every branch
+    and trip merged, which is what the graph's conditional nodes compute.
+    Installed in place of driver._StepGraph (with the solver's
+    `_graph_route` forced), run_steps_history runs the graph route's own
+    code on the CPU: the loading of the buffers, the history ring, and the
+    sum over the ranks after the replays."""
+    from dpgo_tpu_torch import driver
+    from dpgo_tpu_torch.utils import route
+
+    class TraceStepGraph(driver._StepGraph):
+        def capture(self, solver):
+            self.solver = solver
+
+        def replay(self):
+            with route("trace"):
+                self.body(self.solver)
+
+    return TraceStepGraph
+
+
+def _counts(solver) -> dict:
+    from dpgo_tpu_torch.parallel.spmd import Collectives
+    from dpgo_tpu_torch.utils import DeviceCounters
+
+    out = {n: [DeviceCounters.read(n + ".entries"),
+               DeviceCounters.read(n + ".trips")] for n in LOOPS}
+    out.update({n: DeviceCounters.read(n) for n in Collectives.COUNTERS})
+    if hasattr(solver, "fallbacks"):
+        out["fallbacks"] = solver.fallbacks
+    return out
+
+
+def _reset(solver) -> None:
+    from dpgo_tpu_torch.utils import DeviceCounters, HostSyncs
+
+    solver.syncs = HostSyncs()
+    solver.comm.reset()
+    DeviceCounters.reset()
+    if hasattr(solver, "reset_fallbacks"):
+        solver.reset_fallbacks()
+
+
+def trace_route(solver, st0, steps):
+    """run_steps_history on the graph route's code with the trace-route
+    step graph (`trace_step_graph`); returns (state, f, g, counts, host
+    syncs). Restores driver._StepGraph."""
+    from dpgo_tpu_torch import driver
+
+    saved = driver._StepGraph
+    driver._StepGraph = trace_step_graph()
+    solver._graph_route = lambda: True
+    try:
+        _reset(solver)
+        st, k, (f, g) = solver.run_steps_history(st0, 0, steps)
+        assert k == steps
+        return st, f, g, _counts(solver), solver.syncs.count
+    finally:
+        driver._StepGraph = saved
+        del solver._graph_route
+
+
+def _states_equal(a, b) -> bool:
+    from dpgo_tpu_torch.utils import flatten
+    return all(torch.equal(x, y) for x, y in zip(flatten(a)[0],
+                                                  flatten(b)[0]))
+
+
+def trace_cases(rank: int, world_size: int, device, graphs: dict) -> dict:
+    """Per case of TRACE_CASES on this rank: the host route
+    (run_steps_history_eager) and the graph route's code on the trace route
+    (`trace_route`), STEPS steps each from one start. Returns the
+    histories, the device counters of both routes, the host route's Python
+    collective counts and notes, and whether the final states are equal bit
+    for bit. Then the graph key: a copy of the boundary solver with another
+    halo strategy (as chip_smoke.py's sharded phase makes them) must not
+    replay the first strategy's graph."""
+    import copy
+
+    torch.set_num_threads(1)
+    out = {}
+    for name in TRACE_CASES:
+        solver = _trace_solver(name, graphs, device)
+        st0 = solver.initialize()
+        _reset(solver)
+        hs, _, (hf, hg) = solver.run_steps_history_eager(st0, 0, STEPS)
+        host = _counts(solver)
+        py = (solver.comm.calls, solver.comm.bytes, solver.comm.host_copies)
+        notes = {n: list(v) for n, v in solver.syncs.loops.items()}
+        ts, tf, tg, trace, syncs = trace_route(solver, st0, STEPS)
+        out[name] = dict(
+            f=hf.numpy(), g=hg.numpy(), trace_f=tf.numpy(),
+            trace_g=tg.numpy(), host=host, trace=trace, python=py,
+            notes=notes, trace_syncs=syncs,
+            states_equal=_states_equal(hs, ts),
+            ring_rounds=solver.ring_rounds)
+
+    # The graph key: a copy with another strategy shares the graph slot
+    # but must not replay the captured step.
+    solver = _trace_solver("acc_boundary", graphs, device)
+    st0 = solver.initialize()
+    trace_route(solver, st0, 3)
+    graph = solver._graph
+    other = copy.copy(solver)
+    other.halo = "gather"
+    keys = {"same": graph.matches(solver._graph_key(st0)),
+            "other": graph.matches(other._graph_key(st0))}
+    trace_route(other, st0, 3)
+    keys["recaptured"] = other._graph is not graph
+    out["graph_key"] = keys
+    return out
+
+
+def single_trace_history(name: str, graphs: dict) -> tuple:
+    """The port's single-process solver on a trace case (host route):
+    (2f, 2|grad|) histories, numpy."""
+    solver = _trace_solver(name, graphs, "cpu", sharded=False)
+    _, _, (f, g) = solver.run_steps_history(solver.initialize(), 0, STEPS)
+    return f.numpy(), g.numpy()
+
+
+def nccl_graph_checks(rank: int, world_size: int, device,
+                      graphs: dict) -> dict:
+    """On a card over NCCL (tests/test_torch_cuda.py): AMM-PGO# and
+    AMM-PGO* in float32 and float64, STEPS steps with history on the graph
+    route (host flag reads counted) and on the host-read route from the
+    same start; then 5 steps on the graph route under
+    torch.cuda.set_sync_debug_mode("error") (None: no host read; else what
+    raised). Last, a step that reads the card on the host: whether
+    run_steps raised (its message), kept no graph, and the host-read route
+    still ran."""
+    def build(name, dtype):
+        return make_solver(name, graphs, device, True, dtype=dtype)[0]
+
+    out = {}
+    for name in ("acc_boundary", "star_psi"):
+        for dtype in (torch.float32, torch.float64):
+            solver = build(name, dtype)
+            st0 = solver.initialize()
+            syncs = solver.syncs.count
+            _, _, (f, g) = solver.run_steps_history(st0, 0, STEPS)
+            graph_syncs = solver.syncs.count - syncs
+            _, _, (fe, ge) = solver.run_steps_history_eager(st0, 0, STEPS)
+            torch.cuda.synchronize(device)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                solver.run_steps(st0, 0, 5)
+                replay_sync = None
+            except RuntimeError as exc:
+                replay_sync = str(exc)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out[f"{name}_{str(dtype)[6:]}"] = dict(
+                f=f.cpu().numpy(), fe=fe.cpu().numpy(), g=g.cpu().numpy(),
+                ge=ge.cpu().numpy(), graph_syncs=graph_syncs,
+                eager_syncs=solver.syncs.count - syncs - graph_syncs,
+                captured=solver._graph is not None,
+                replay_sync=replay_sync, backend=solver.comm.backend)
+
+    solver = build("acc_boundary", torch.float32)
+    st0 = solver.initialize()
+    advance = solver._advance
+
+    def reads_the_card(probs, st, k):
+        res = advance(probs, st, k)
+        float(res[0].fobj.sum())
+        return res
+
+    solver._advance = reads_the_card
+    try:
+        solver.run_steps(st0, 0, 3)
+        raised = None
+    except RuntimeError as exc:
+        raised = str(exc)
+    del solver._advance
+    st, k = solver.run_steps_eager(st0, 0, 2)
+    out["failed_capture"] = dict(
+        raised=raised, no_graph=solver._graph is None,
+        eager_ran=k == 2 and bool(torch.isfinite(st.Z.t).all()))
+    return out
