@@ -94,7 +94,24 @@ seconds, and the end the whole run's.
      iterations, `--polish 5 --lm_polish --certify`: GLOBAL OPT, final 2f
      within 1e-9 of GRID3D_CERTIFIED_2F, result files written.
    - sesync_grid: `sesync_cli.main` on grid3D_synth: GlobalOpt at rank 3,
-     2 SDP within 1e-8 of GRID3D_SDP_2F.
+     2 SDP within 1e-8 of GRID3D_SDP_2F; then `sesync` on the graph route
+     (each rank's TNT one captured program) and on the host-read route
+     (`graph=False`) side by side (sesync_routes): the same status and
+     rank, 2 SDP within 1e-10, 0 host syncs in the captured TNTs, K2
+     float64 launched.
+   - sesync_rim4096 (after path 8): rim_synth_4096 (4,096 poses, made by
+     `tools/make_rim.py --rows 32 --cols 64 --floors 2` in a subprocess
+     when absent, git-ignored), SE-Sync at its dense limit: `sesync` on
+     both routes as sesync_grid (GlobalOpt held); then
+     `certify_solution(method="lobpcg")` on its estimate and on a rotated
+     control (poses 1000-1999 turned 0.5 rad) with the LOBPCG captured
+     (ops/linalg.py: Gram-Schmidt basis, Jacobi Rayleigh-Ritz) and on
+     the host-read route: estimate certified and control rejected on
+     both, lambda_min within 1e-5 between them, 0 host syncs in the
+     captured LOBPCG; the Chebyshev
+     preconditioner where the plain LOBPCG does not resolve the sign
+     within its budget (the choice printed). K2 float64 at [4096, 3, 3]
+     is held to its plain version and timed among the kernel phases.
 
 9. PCM and Anderson acceleration (run after path 6, before 8):
    - pcm_rim: rim_synth with every tenth inter-node edge an outlier (53,
@@ -148,6 +165,10 @@ seconds, and the end the whole run's.
      (refinement off) from rim's float32 estimate, `polish(outer=10,
      tcg=300, coarse=True)` as path 8's polish_rim: 2f held within 1e-9 of
      that path's in the same call and within 1e-8 of RIM_CERTIFIED_2F;
+     in nccl1 the TNT is one captured program with its NCCL collectives
+     inside (0 host syncs held) and the same polish runs on the host-read
+     route in the same rank: 2f within 1e-10 of it, exchanges and
+     collectives per CG iteration within 0.1 of its;
    - polish_rim100k, in gloo4: `polish(outer=3, tcg=100, coarse=False)` in
      float32 of the state rim100k_prox's sharded run reaches after its 25
      steps (4 x 4 nodes, the segment branch of the node-block
@@ -209,6 +230,11 @@ NUM_NODES = 16
 SEED = 0
 DATASET = os.path.join("artifacts", "rim_synth.g2o")
 RIM100K = os.path.join("artifacts", "rim_synth_100k.g2o")
+# SE-Sync at its dense limit (sesync_rim4096): 2 floors of rim_synth's
+# 32 x 64 sweep, 4,096 poses, the most that sesync/problem.py keeps the
+# reduced Laplacian's inverse for on the card (above it every application
+# of S is a host SuperLU round trip).
+RIM4096 = os.path.join("artifacts", "rim_synth_4096.g2o")
 # 2f after 100 proximal-only steps on rim_synth_100k with 16 nodes as the
 # JAX package's bench recorded it (BENCH_r05.json, fobj_2x_100it): printed
 # beside the port's, not held.
@@ -454,10 +480,11 @@ def phase_polar_so3(rng, dev, card, n=NUM_NODES * 640):
                 bound_ms=bnd, bound_by=by, library_ms=None)
 
 
-def phase_polar_so3_f64(rng, dev, card):
+def phase_polar_so3_f64(rng, dev, card, n=NUM_NODES * 640):
     """K2's float64 instantiation (the CLI's default type) against its plain
-    version on 10,240 matrices built as in phase_polar_so3, every fifth
-    with det < 0, plus one zero matrix: within 1e-12, then timed."""
+    version on n matrices (10,240: the float64 rim polish's batch; 4,096:
+    the rounding of sesync_rim4096) built as in phase_polar_so3, every
+    fifth with det < 0, plus one zero matrix: within 1e-12, then timed."""
     import numpy as np
     import torch
 
@@ -466,7 +493,6 @@ def phase_polar_so3_f64(rng, dev, card):
     from dpgo_tpu_torch.ops.so3 import polar_so3
     from dpgo_tpu_torch.synthetic import random_rotations
 
-    n = NUM_NODES * 640
     sigma = np.array([1.0, 2.0, 3.5]) + rng.uniform(0, 0.5, size=(n, 3))
     sigma *= 10.0 ** rng.uniform(-2, 2, size=(n, 1))
     A = random_rotations(rng, n) @ (
@@ -1207,7 +1233,8 @@ def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
                             "launches": launches["cli_certify"],
                             "card": card}
 
-    # sesync_grid: the staircase through its CLI.
+    # sesync_grid: the staircase through its CLI (the graph route on the
+    # card: each rank's TNT captured), then on both routes with their stats.
     reset_counts()
     t0 = time.perf_counter()
     res = sesync_cli.main(["--dataset", grid])
@@ -1222,12 +1249,172 @@ def polish_certify_paths(root, dev, card, rim, rim_est, paths, launches):
     check(abs(2 * res.sdp_val / GRID3D_SDP_2F - 1.0) <= 1e-8,
           f"sesync_grid: 2 SDP {2 * res.sdp_val} not within 1e-8 of "
           f"{GRID3D_SDP_2F}")
+    routes = sesync_routes("sesync_grid", meas_g, dev, card)
+    for r in routes.values():
+        del r["R"]
     paths["sesync_grid"] = {"seconds": secs, "status": res.status,
                             "rank": res.rank, "sdp_2x": 2 * res.sdp_val,
                             "fxhat_2x": 2 * res.fxhat,
                             "lambda_min": res.lambda_min,
                             "launches": launches["sesync_grid"],
-                            "card": card}
+                            "routes": routes, "card": card}
+
+
+def sesync_routes(name, meas, dev, card) -> dict:
+    """sesync(meas) (simplified, float64) on the graph route (each rank's
+    TNT captured, `graph=True`) and on the host-read route (`graph=False`)
+    in this process: printed side by side (seconds, status, rank, 2 SDP,
+    the TNTs' host flag reads, outer iterations, captures, K2 float64
+    launches). Held: the graph route taken, the same status and rank, 2 SDP
+    within 1e-10 relative, 0 host flag reads in the captured TNTs and K2
+    float64 launched. Returns both records (graph route's stats first)."""
+    import torch
+
+    from dpgo_tpu_torch.sesync.staircase import sesync
+
+    out = {}
+    for graph in (True, False):
+        stats = {}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sesync(meas, device=dev, graph=graph, stats=stats)
+        torch.cuda.synchronize()
+        out["graph" if graph else "host"] = dict(
+            seconds=time.perf_counter() - t0, status=res.status,
+            rank=res.rank, sdp_2x=2 * res.sdp_val, fxhat_2x=2 * res.fxhat,
+            lambda_min=res.lambda_min, launches=kernel_counts(),
+            R=res.R, **stats)
+    g, h = out["graph"], out["host"]
+
+    def ranks(r):
+        return "; ".join(
+            f"rank {x['rank']}: TNT {x['seconds']:.3f} s, {x['outer']} "
+            f"outer, {x['tnt_host_syncs']} host syncs"
+            + (f", captured in {x['capture_s']:.2f} s after a "
+                            f"{x['warmup_s']:.2f} s warm-up, replay "
+                            f"{x['replay_s']:.3f} s, pools "
+                            f"{x['pool_bytes'] / 2**20:.1f} MiB"
+                            if "capture_s" in x else "")
+            for x in r["ranks"])
+
+    rel = abs(g["sdp_2x"] / h["sdp_2x"] - 1.0)
+    print(f"{name} graph vs host-read route [{card}]: {g['seconds']:.2f} vs "
+          f"{h['seconds']:.2f} s; routes {g['route']} / {h['route']}; "
+          f"{g['status']} at rank {g['rank']} vs {h['status']} at rank "
+          f"{h['rank']}; 2 SDP {g['sdp_2x']:.12f} vs {h['sdp_2x']:.12f} "
+          f"(relative {rel:.3e}); lambda_min {g['lambda_min']:.3e} vs "
+          f"{h['lambda_min']:.3e}; K2 float64 launches "
+          f"{g['launches']['polar_so3_f64']} vs "
+          f"{h['launches']['polar_so3_f64']}; LOBPCG certificates "
+          f"{len(g['lobpcg'])} vs {len(h['lobpcg'])}; graph: {ranks(g)}; "
+          f"host: {ranks(h)}")
+    check(g["route"] == "graph" and h["route"] == "host",
+          f"{name}: routes {g['route']} / {h['route']}")
+    check((g["status"], g["rank"]) == (h["status"], h["rank"]),
+          f"{name}: the routes end in {g['status']} at rank {g['rank']} and "
+          f"{h['status']} at rank {h['rank']}")
+    check(rel <= 1e-10, f"{name}: 2 SDP parts between the routes by {rel}")
+    check(all(x["tnt_host_syncs"] == 0 for x in g["ranks"]),
+          f"{name}: a captured TNT read the card on the host: {g['ranks']}")
+    check(g["launches"]["polar_so3_f64"] > 0, f"{name}: K2 float64 was not "
+          f"launched: {g['launches']}")
+    return out
+
+
+def sesync_rim4096_path(root, dev, card, paths, launches):
+    """sesync_rim4096 (module docstring, 8): SE-Sync at its dense limit.
+    The staircase on both routes (sesync_routes; GlobalOpt held), then
+    certify_solution(method="lobpcg") on its estimate and on a rotated
+    control (poses 1000-1999 turned 0.5 rad about z, as certify_rim turns
+    rim's) on the graph route (the LOBPCG captured) and the host-read
+    route: the same verdicts held (estimate certified, control rejected),
+    lambda_min within min_eig_tol between the routes, 0 host syncs in the
+    captured LOBPCG. The Chebyshev preconditioner is taken where the plain
+    LOBPCG does not resolve the sign within its budget; the choice is
+    printed."""
+    import numpy as np
+
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+    from dpgo_tpu_torch.sesync.staircase import certify_solution
+
+    path = ensure_rim(root, RIM4096, floors=2)
+    meas = read_g2o_file(path)
+    check(meas.num_poses == 4096, f"sesync_rim4096: {meas.num_poses} poses")
+    routes = sesync_routes("sesync_rim4096", meas, dev, card)
+    # The path's launches: the graph route's run (counts set to 0 before it).
+    launches["sesync_rim4096"] = routes["graph"]["launches"]
+    g = routes["graph"]
+    check(g["status"] == "GlobalOpt", f"sesync_rim4096: {g['status']}")
+    R = g.pop("R")
+    routes["host"].pop("R")
+
+    tol = 1e-5  # certify_solution's and SESyncOpts' min_eig_tol
+    th = 0.5
+    turn = np.array([[np.cos(th), -np.sin(th), 0.0],
+                     [np.sin(th), np.cos(th), 0.0], [0.0, 0.0, 1.0]])
+    R_bad = R.copy()
+    R_bad[1000:2000] = turn @ R_bad[1000:2000]
+    budget = 20000  # min_eig_lobpcg's max_iters under certify_solution
+    cert = {}
+    for name, cand, want in (("estimate", R, True), ("control", R_bad,
+                                                     False)):
+        precon = "auto"
+        for graph in (True, False):
+            stats = {}
+            reset_counts()
+            ok, lam, bound, fx = certify_solution(
+                meas, cand, method="lobpcg", precon=precon, device=dev,
+                graph=graph, stats=stats)
+            if graph and stats["lobpcg"]["iterations"] >= budget \
+                    and precon == "auto":
+                # The plain LOBPCG did not resolve the sign: Chebyshev.
+                precon = "chebyshev"
+                stats = {}
+                reset_counts()
+                ok, lam, bound, fx = certify_solution(
+                    meas, cand, method="lobpcg", precon=precon, device=dev,
+                    graph=graph, stats=stats)
+            cert[(name, graph)] = dict(
+                certified=bool(ok), lambda_min=lam, bound_2x=2 * bound,
+                f2=2 * fx, precon=precon, launches=kernel_counts(), **stats)
+        cg, ch = cert[(name, True)], cert[(name, False)]
+        lg, lh = cg["lobpcg"], ch["lobpcg"]
+        print(f"sesync_rim4096 certify {name} [{card}]: precon {precon} "
+              f"({'the plain LOBPCG resolved the sign within its budget' if precon == 'auto' else 'the plain LOBPCG did not resolve the sign within its budget'}); "
+              f"graph vs host-read route: {cg['seconds']:.2f} vs "
+              f"{ch['seconds']:.2f} s in all, LOBPCG {lg['seconds']:.3f} vs "
+              f"{lh['seconds']:.3f} s, {lg['iterations']} vs "
+              f"{lh['iterations']} iterations, its replay "
+              f"{lg['replay_s']:.3f} s (captured in {lg['capture_s']:.2f} s "
+              f"after a {lg['warmup_s']:.2f} s warm-up, pools "
+              f"{lg['pool_bytes'] / 2**20:.1f} MiB) vs {ch['apply_S_s']:.3f} "
+              f"s in the host route's applications of S; applications of S "
+              f"{cg['apply_S_calls']} vs {ch['apply_S_calls']}; host syncs "
+              f"{cg['host_syncs']} vs {ch['host_syncs']} (loops "
+              f"{cg['loops']} vs {ch['loops']}); "
+              f"{'certified' if cg['certified'] else 'not certified'} vs "
+              f"{'certified' if ch['certified'] else 'not certified'}, "
+              f"lambda_min {cg['lambda_min']:.3e} vs {ch['lambda_min']:.3e}; "
+              f"K2 float64 launches {cg['launches']['polar_so3_f64']} vs "
+              f"{ch['launches']['polar_so3_f64']}")
+        check(lg["route"] == "graph" and lh["route"] == "host",
+              f"sesync_rim4096 certify {name}: routes {lg['route']} / "
+              f"{lh['route']}")
+        check(cg["certified"] == ch["certified"] == want,
+              f"sesync_rim4096 certify {name}: verdicts {cg['certified']} "
+              f"(graph) / {ch['certified']} (host), want {want}")
+        check(abs(cg["lambda_min"] - ch["lambda_min"]) <= tol,
+              f"sesync_rim4096 certify {name}: lambda_min "
+              f"{cg['lambda_min']} vs {ch['lambda_min']}")
+        check(cg["host_syncs"] == 0 and "lobpcg" not in cg["loops"],
+              f"sesync_rim4096 certify {name}: the captured LOBPCG read the "
+              f"card on the host ({cg['host_syncs']}, {cg['loops']})")
+    paths["sesync_rim4096"] = {
+        "routes": routes,
+        "certify": {f"{n}_{'graph' if gr else 'host'}": v
+                    for (n, gr), v in cert.items()},
+        "launches": launches["sesync_rim4096"], "card": card}
 
 
 def pcm_aa_paths(root, dev, card, make_solver, rim, rim_est, paths,
@@ -1423,15 +1610,17 @@ def pcm_aa_paths(root, dev, card, make_solver, rim, rim_est, paths,
                         "launches": launches["cli_pcm"], "card": card}
 
 
-def ensure_rim100k(root: str) -> str:
-    """The path of rim_synth_100k.g2o, made with tools/make_rim.py (numpy
-    only) in a subprocess when the file is absent."""
-    path = os.path.join(root, RIM100K)
+def ensure_rim(root: str, rel: str = RIM100K, floors: int = 50) -> str:
+    """The path of a rim_synth graph of 32 x 64 poses per floor (RIM100K:
+    50 floors; RIM4096: 2), made with tools/make_rim.py (numpy only) in a
+    subprocess when the file is absent."""
+    path = os.path.join(root, rel)
     if not os.path.exists(path):
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, os.path.join(root, "tools", "make_rim.py"),
-             "--rows", "32", "--cols", "64", "--floors", "50", "--out", path],
+             "--rows", "32", "--cols", "64", "--floors", str(floors),
+             "--out", path],
             check=True, timeout=600, capture_output=True, text=True).stdout
         print(f"{out.strip()} in {time.perf_counter() - t0:.1f} s")
     return path
@@ -1661,7 +1850,7 @@ def large_block_paths(root, dev, card, make_solver, rim, paths, launches,
     from dpgo_tpu_torch.solvers.tnt import TNTParams
     from dpgo_tpu_torch.synthetic import with_outliers
 
-    path = ensure_rim100k(root)
+    path = ensure_rim(root)
     t0 = time.perf_counter()
     big = read_g2o_file(path)
     print(f"rim100k: {RIM100K} read in {time.perf_counter() - t0:.1f} s")
@@ -1911,7 +2100,7 @@ def collective_counts() -> dict:
     return {n: DeviceCounters.read(n) for n in Collectives.COUNTERS}
 
 
-def sharded_rank(rank, world_size, device, jobs, card):
+def sharded_rank(rank, world_size, device, jobs, card, probe_first=True):
     """One rank of the sharded phase: for each job, build the sharded
     solver on this rank's nodes once (in the job's type, float32 unless it
     names another), then for each of the job's runs (a halo strategy and a
@@ -1926,8 +2115,9 @@ def sharded_rank(rank, world_size, device, jobs, card):
     times the single-process paths); a run with `eager` then runs them on
     the host-read route with history, timed; a run with `profile` (at,
     steps) adds profile_path's window (and the host-read route's, with
-    `eager`). Over NCCL the first record also carries the answer of
-    probe_nccl_conditional. Returns one record per run."""
+    `eager`). Over NCCL (with `probe_first`) the first record also
+    carries the answer of probe_nccl_conditional. Returns one record per
+    run."""
     import numpy as np
     import torch
 
@@ -1953,7 +2143,7 @@ def sharded_rank(rank, world_size, device, jobs, card):
                    device=device)
         _sync(device)
         build_s = time.perf_counter() - t0
-        if probe is None and base.comm.backend == "nccl":
+        if probe_first and probe is None and base.comm.backend == "nccl":
             probe = probe_nccl_conditional(base.comm, device)
         for run in job["runs"]:
             if run["deterministic"]:
@@ -1980,6 +2170,9 @@ def sharded_rank(rank, world_size, device, jobs, card):
             if not steps:
                 rec["polish"] = sharded_polish(solver, st, run["polish"],
                                                device)
+                if run.get("eager"):
+                    rec["polish_eager"] = sharded_polish(
+                        solver, st, dict(run["polish"], eager=True), device)
                 out.append(rec)
                 del solver, st
                 continue
@@ -2134,6 +2327,10 @@ def sharded_paths(card, rim, rim_init, rim_est, big, big_init, refs, paths,
                                        for r in rim_job["runs"]])
     star_eager = dict(star_job, runs=[dict(r, eager=True)
                                       for r in star_job["runs"]])
+    # nccl1's split polish on the graph route (the TNT captured, its
+    # collectives inside) and then on the host-read route, in the same rank.
+    polish_eager = dict(polish_job, runs=[dict(r, eager=True)
+                                          for r in polish_job["runs"]])
     jobs4 = [
         # Two runs of one strategy, then each strategy, in the default mode
         # and (last) under deterministic algorithms.
@@ -2152,7 +2349,7 @@ def sharded_paths(card, rim, rim_init, rim_est, big, big_init, refs, paths,
     # The deterministic runs go last: the setting stays on in the process.
     jobs4 = jobs4[1:] + jobs4[:1]
     runs = [("nccl1", "nccl", ["cuda:0"], [rim_profiled, star_eager,
-                                          polish_job]),
+                                          polish_eager]),
             ("gloo4", "gloo", ["cuda:0"] * 4, jobs4)]
     if torch.cuda.device_count() >= 4:
         runs.append(("nccl4", "nccl", [f"cuda:{r}" for r in range(4)],
@@ -2214,6 +2411,10 @@ def sharded_paths(card, rim, rim_init, rim_est, big, big_init, refs, paths,
                     big_solver, recs, run_kw(jobs, key)))
                 out[name]["runs"][pkey] = _sharded_polish_record(
                     f"sharded {name} {pkey}", pkey, recs, refs, card, same)
+                if "polish_eager" in rec:
+                    out[name]["runs"][pkey]["eager"] = _split_polish_routes(
+                        f"sharded {name} {pkey}", recs,
+                        [r["polish_eager"] for r in mine], card)
                 f64 = pkey == "polish_rim"
                 launches[f"sharded_{name}_{pkey}"] = {
                     "polar_so3": 0 if f64 else sum(r["k2"] for r in recs),
@@ -2453,6 +2654,51 @@ def _sharded_polish_record(label, key, recs, refs, card, same=None):
             "edges": [r["edges"] for r in recs]}
 
 
+def _split_polish_routes(label, recs, eager, card) -> dict:
+    """Print a split polish on the graph route (`recs`, one record per rank:
+    sharded_polish) beside the same polish on the host-read route in the
+    same ranks (`eager`), and hold: the graph route taken over NCCL, no
+    host sync in it (the re-initialization included), 2f within 1e-10 of
+    the host route's, exchanges and collectives per CG iteration within
+    0.1 of the host route's (device counters on both), K2 launched.
+    Returns the host route's numbers."""
+    mib = 2.0 ** 20
+    for g, h in zip(recs, eager):
+        cg, ch = max(g["cg_iterations"], 1), max(h["cg_iterations"], 1)
+        per = {k: (g[k] / cg, h[k] / ch) for k in ("exchanges",
+                                                    "collectives", "bytes")}
+        rel = abs(g["f2"] / h["f2"] - 1.0)
+        print(f"{label} graph vs host-read route, same rank [{card}]: "
+              f"{g['seconds']:.2f} vs {h['seconds']:.2f} s; routes "
+              f"{g['route']} / {h['route']}; {g['outer']} vs {h['outer']} "
+              f"outer, {g['cg_iterations']} vs {h['cg_iterations']} CG "
+              f"iterations; host syncs {g['host_syncs']} vs "
+              f"{h['host_syncs']}; per CG iteration "
+              + ", ".join(f"{k} {a:.3f} vs {b:.3f}" for k, (a, b)
+                          in per.items())
+              + f"; K2 float64 {g['k2']} vs {h['k2']}; captured in "
+              f"{g['capture_s']:.2f} s after a {g['warmup_s']:.2f} s "
+              f"warm-up, pools {g['pool_bytes'] / mib:.1f} MiB; peak "
+              f"allocated {g['memory']['peak'] / mib:.1f} vs "
+              f"{h['memory']['peak'] / mib:.1f} MiB; 2f {g['f2']:.10f} vs "
+              f"{h['f2']:.10f} (relative {rel:.3e})")
+        check(g["route"] == "graph" and h["route"] == "host",
+              f"{label}: routes {g['route']} / {h['route']}")
+        check(g["host_syncs"] == 0, f"{label}: the captured polish read the "
+              f"card on the host {g['host_syncs']} times")
+        check(rel <= 1e-10, f"{label}: the graph and host-read routes' 2f "
+              f"part by {rel} > 1e-10")
+        for k in ("exchanges", "collectives"):
+            a, b = per[k]
+            check(abs(a - b) <= LAUNCH_SPREAD, f"{label}: {k} per CG "
+                  f"iteration {a} (graph) vs {b} (host)")
+        check(g["k2"] > 0 and h["k2"] > 0, f"{label}: K2 not launched")
+    h = eager[0]
+    return {k: h[k] for k in ("seconds", "f2", "outer", "cg_iterations",
+                              "host_syncs", "exchanges", "collectives",
+                              "bytes", "k2", "route")}
+
+
 def _same_as_one_strategy(label, runs, job, hold):
     """The exchange only moves bytes: the strategies must part from the
     first boundary run no more than a second boundary run does (held with
@@ -2528,6 +2774,8 @@ def main() -> int:
     k2_100k = phase_polar_so3(np.random.default_rng(SEED + 6), dev, card,
                               n=NUM_NODES * 6400)
     k2_f64 = phase_polar_so3_f64(np.random.default_rng(SEED + 4), dev, card)
+    k2_f64_4096 = phase_polar_so3_f64(np.random.default_rng(SEED + 8), dev,
+                                      card, n=4096)
     kcond = phase_graph_cond(np.random.default_rng(SEED + 7), dev, card)
     lap("kernel phases")
     # The manhattan graph's .g2o file and the CLI's working directory.
@@ -2825,6 +3073,10 @@ def main() -> int:
 
     lap("polish_certify")
 
+    sesync_rim4096_path(root, dev, card, paths, launches)
+
+    lap("sesync_rim4096")
+
     # Path 7: node blocks above the dense limit.
     big, big_init = large_block_paths(root, dev, card, make_solver, rim,
                                       paths, launches, to_profile)
@@ -2900,6 +3152,11 @@ def main() -> int:
     # K2's float32 entry carries its times at both projection batches.
     k2 = dict(k2, max_abs_err=max(k2["max_abs_err"], k2_100k["max_abs_err"]),
               shapes={"[10240, 3, 3]": k2, "[102400, 3, 3]": k2_100k})
+    # So does the float64 one: the rim polish's batch and sesync_rim4096's.
+    k2_f64 = dict(k2_f64, max_abs_err=max(k2_f64["max_abs_err"],
+                                          k2_f64_4096["max_abs_err"]),
+                  shapes={"[10240, 3, 3]": k2_f64,
+                          "[4096, 3, 3]": k2_f64_4096})
     kernels = [
         entry("polar_so3", "dpgo_tpu_torch/csrc/polar_so3.cu",
               "dpgo_tpu/ops/pallas_so3.py:70", k2),

@@ -164,6 +164,14 @@ class Captured:
     warmup_s: float
     capture_s: float
     pool_bytes: int
+    replay_events: tuple = ()
+
+    def replay_s(self) -> float:
+        """Seconds of the replay `run_once` made, from CUDA events recorded
+        around it (waits for the second)."""
+        start, end = self.replay_events
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
 
 
 def warm_and_capture(device: torch.device, fn) -> Captured:
@@ -212,9 +220,14 @@ def warm_and_capture(device: torch.device, fn) -> Captured:
 def run_once(device: torch.device, fn):
     """`fn()` captured (`warm_and_capture`) and replayed once: a copy of
     what it returns (a tree of tensors, `utils.flatten`), made after the
-    replay on the same stream, and the Captured record. Nothing is read on
-    the host."""
+    replay on the same stream, and the Captured record (the replay sits
+    between two CUDA events: `Captured.replay_s`). Nothing is read on the
+    host."""
     cap = warm_and_capture(device, fn)
+    cap.replay_events = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+    cap.replay_events[0].record()
     cap.graph.replay()
+    cap.replay_events[1].record()
     leaves, rebuild = flatten(cap.out)
     return rebuild([x.clone() for x in leaves]), cap

@@ -348,7 +348,6 @@ class _Sharded:
         self.node_hi = self.node_lo + self.nodes_per_rank
         self._group = group
         self._split = None
-        self.row_exchanges = 0
         super().__init__(meas, num_nodes, *args, **kw)
         sched = build_halo_schedule(self.mg)
         self.halo_sched = sched
@@ -405,13 +404,30 @@ class _Sharded:
 
     # ------------------------------------------------------- stepping
 
+    # Whether the captured step holds collectives inside conditional bodies
+    # (AMM-PGO*'s master branches).
+    COLLECTIVES_IN_BODIES = False
+
     def _graph_route(self) -> bool:
-        """The graph route over NCCL on a CUDA card (the halo exchange and
-        the master's all_reduces are recorded into the captured step, in
-        its IF bodies too); gloo keeps the host-read route: its
-        collectives run on the host (staged through it on a card), which a
-        CUDA graph cannot record."""
-        return self.comm.backend == "nccl" and super()._graph_route()
+        """The graph route over NCCL on a CUDA card (the halo exchange, and
+        at world size 1 the master's all_reduces inside its IF bodies, are
+        recorded into the captured step); gloo keeps the host-read route:
+        its collectives run on the host (staged through it on a card),
+        which a CUDA graph cannot record. A step with collectives inside
+        conditional bodies keeps the host-read route where
+        `_bodies_capture_collectives` says they cannot be captured."""
+        return (self.comm.backend == "nccl" and super()._graph_route()
+                and (not self.COLLECTIVES_IN_BODIES
+                     or self._bodies_capture_collectives()))
+
+    def _bodies_capture_collectives(self) -> bool:
+        """Whether NCCL collectives can be captured inside an IF or WHILE
+        body: at world size 1. At world size 4 (NVIDIA H100s, NCCL 2.28,
+        `tools/nccl4_graph.py --probe`) an all_reduce or all_gather there
+        fails the capture with cudaErrorInvalidValue, while at the top
+        level of the graph it captures (the boundary and ring exchanges of
+        AMM-PGO#'s step)."""
+        return self.num_ranks == 1
 
     def _graph_key(self, st) -> tuple:
         # The captured exchange follows the strategy it was recorded with.
@@ -443,9 +459,11 @@ class _Sharded:
         own rows [P_r, k] (k values per pose: a point or directions, packed
         by polish.with_halo), by the solver's halo strategy. No gauge
         offset is added: the polish works in the global frame, and a
-        direction has no gauge. Counted in `row_exchanges`."""
+        direction has no gauge. Counted on the device ("row_exchanges",
+        utils.DeviceCounters), so that a captured exchange counts at every
+        replay."""
         sp = self.pose_split()
-        self.row_exchanges += 1
+        DeviceCounters.bump("row_exchanges", self.device)
         h = _exchange_packed(self.comm, rows[sp.edges.node_rows],
                              self.halo_owner,
                              (self.halo_slot, self.halo_lpose), self.bnd,
@@ -465,6 +483,8 @@ class _Sharded:
             t = t + c
         return t, st.Z.R[rows]
 
+    POLISH_COUNTERS = ("row_exchanges",) + Collectives.COUNTERS
+
     def _polish_tnt(self, st, params, node_precon: bool, coarse: bool,
                     coarse_segments: tuple, graph: bool):
         """The polish's TNT with the pose axis split over the ranks: each
@@ -473,24 +493,33 @@ class _Sharded:
         node-block preconditioner of its own problems and the coarse levels'
         sums over the ranks; one all_gather of the rows at the end. Every
         branch of TNT and STPCG reads all-reduced values, so the ranks run
-        the same collectives. The stats add this rank's exchanges,
-        collectives, bytes and host copies up to that all_gather.
+        the same collectives.
 
-        It keeps the host-read route whatever `graph` asks: its collectives
-        sit inside STPCG's WHILE body, a capture over NCCL not yet taken
-        (ROADMAP)."""
+        With `graph` (polish() asks for it where `_graph_route` holds: NCCL
+        on a CUDA card) and where `_bodies_capture_collectives` (world size
+        1), the TNT is one captured program replayed once, its halo
+        exchanges and all_reduces recorded inside the WHILE bodies of TNT
+        and STPCG; the model's and the coarse levels' set-up (their
+        collectives too) runs before the capture, the final all_gather
+        after it. Otherwise the host-read route. The stats add this rank's
+        exchanges, collectives, bytes and host copies up to that
+        all_gather, read from the device counters on both routes (the host
+        flag reads stay in `syncs`: rank-local, since the segment CG's trips
+        differ between ranks)."""
         sp = self.pose_split()
         comm = self.comm
-        calls0, bytes0, copies0 = comm.calls, comm.bytes, comm.host_copies
-        exchanges0 = self.row_exchanges
+        own = self.own_rows(st)
+        before = {n: DeviceCounters.read(n) for n in self.POLISH_COUNTERS}
         t2, R2, fx, stats = self._run_polish_tnt(
-            sp.edges, self.own_rows(st), params, node_precon, coarse,
-            coarse_segments, exchange=self.exchange_rows,
-            reduce=comm.all_reduce, graph=False)
-        stats.update(exchanges=self.row_exchanges - exchanges0,
-                     collectives=comm.calls - calls0,
-                     bytes=comm.bytes - bytes0,
-                     host_copies=comm.host_copies - copies0)
+            sp.edges, own, params, node_precon, coarse, coarse_segments,
+            exchange=self.exchange_rows, reduce=comm.all_reduce,
+            graph=graph and self._bodies_capture_collectives())
+        after = {n: DeviceCounters.read(n) - before[n]
+                 for n in self.POLISH_COUNTERS}
+        stats.update(exchanges=after["row_exchanges"],
+                     collectives=after["collectives"],
+                     bytes=after["collective_bytes"],
+                     host_copies=after["collective_host_copies"])
         # Every rank's rows, padded to the widest rank, in rank order.
         d = self.mg.d
         buf = t2.new_zeros(max(sp.counts), d + d * d)
@@ -536,7 +565,10 @@ class ShardedDPGOSolver(_Sharded, DPGOSolver):
     gathered once and the solver re-initialized at it, the same
     (state, 2f) on every rank; `polish_stats` counts the polish's
     exchanges, collectives, bytes and host copies beside its CG
-    iterations."""
+    iterations. Over NCCL on a card at world size 1 the polish's TNT is
+    one captured program, collectives inside, replayed once (the graph
+    route, as for the steps); `polish(eager=True)`, gloo and larger NCCL
+    worlds (`_bodies_capture_collectives`) take the host-read route."""
 
 
 class ShardedDPGOStarSolver(_Sharded, DPGOStarSolver):
@@ -544,7 +576,11 @@ class ShardedDPGOStarSolver(_Sharded, DPGOStarSolver):
     global objective is the all_reduce of per-node objective shares over
     exchanged halos (no physical master; reference DPGOStar.cpp:126-213),
     and the psi-test's squared step is summed over all ranks, so every rank
-    takes the same fallbacks (`fallbacks` is equal on all ranks)."""
+    takes the same fallbacks (`fallbacks` is equal on all ranks). Its
+    master's all_reduces sit inside the step's IF bodies, so over NCCL it
+    takes the graph route at world size 1 only."""
+
+    COLLECTIVES_IN_BODIES = True
 
     def _global_f(self, t_own, R_own):
         Z = self._exchange_halos(NodeState(t=t_own, R=R_own, th=None,

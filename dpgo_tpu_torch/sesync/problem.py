@@ -27,6 +27,7 @@ import torch
 
 from dpgo_tpu_torch.io.g2o import Measurements
 from dpgo_tpu_torch.manifold import project_sod
+from dpgo_tpu_torch.ops import linalg
 from dpgo_tpu_torch.solvers.tnt import TNTModel
 from dpgo_tpu_torch.utils import HostSyncs, resolve_device
 
@@ -54,6 +55,10 @@ class SESyncProblem:
     # Route round_solution's SO(3) projection through kernel K2 (False: its
     # plain version on any device).
     kernels: bool = True
+    # project_blocks' eigendecompositions by ops/linalg.py's Jacobi sweeps,
+    # which read nothing on the host (torch.linalg.eigh on a card reads
+    # its status): the staircase TNT captured on a card.
+    capturable: bool = False
     syncs: HostSyncs = dataclasses.field(default_factory=HostSyncs)
 
     # ------------------------------------------------------- Q application
@@ -125,10 +130,10 @@ class SESyncProblem:
     def project_blocks(self, A):
         """Per-block projection onto the Stiefel manifold: row-orthonormalize
         each [d, r] block via (B B^T)^(-1/2) B (a batched eigh of the
-        [n, d, d] Gram matrices)."""
+        [n, d, d] Gram matrices; Jacobi sweeps with `capturable`)."""
         B = self._blocks(A)
         G = B @ B.transpose(-1, -2)
-        lam, V = torch.linalg.eigh(G)
+        lam, V = linalg.eigh(G, self.capturable)
         inv_sqrt = (V * (1.0 / torch.sqrt(torch.clamp(lam, min=1e-12)))
                     [:, None, :]) @ V.transpose(-1, -2)
         return (inv_sqrt @ B).reshape(A.shape)

@@ -13,10 +13,13 @@ so f* >= f(Y) + (n d / 2) min(0, lambda_min(S)); lambda_min >= -tol certifies
 global optimality of the rounded solution up to that gap.
 
 Where the work runs: the operator S (`apply_S`) and LOBPCG's dense algebra
-on the problem's device (the CUDA card by default), LOBPCG as a host-read
-loop (one flag read per iteration, counted in `HostSyncs`); the sparse
-direct pieces (SuperLU, ARPACK, the translation-explicit certificate) on the
-host with scipy, as in the JAX package. Random starts come from a
+on the problem's device (the CUDA card by default); the sparse direct
+pieces (SuperLU, ARPACK, the translation-explicit certificate) on the host
+with scipy, as in the JAX package. The staircase's TNT at each rank and a
+LOBPCG certificate are loops the JAX package jits into one device program;
+here each is one captured CUDA graph replayed once (`graph_route`: on a
+card, where S has no host piece), or on the host-read route one flag read
+per trip (`HostSyncs`). Random starts come from a
 `torch.Generator` on the device seeded as the JAX package seeds its keys, so
 runs of the two packages agree in eigenvalues, verdicts and bounds, not in
 vectors. Certification runs in float64 whatever the solver's type.
@@ -31,10 +34,12 @@ import numpy as np
 import torch
 
 from dpgo_tpu_torch.io.g2o import Measurements
+from dpgo_tpu_torch.ops import linalg
 from dpgo_tpu_torch.sesync.problem import (build_sesync_explicit,
                                            build_sesync_problem)
 from dpgo_tpu_torch.solvers.tnt import TNTParams, tnt_one
-from dpgo_tpu_torch.utils import HostSyncs, resolve_device
+from dpgo_tpu_torch.utils import (DeviceCounters, HostSyncs,
+                                  bounded_while, resolve_device)
 
 
 @dataclasses.dataclass
@@ -105,9 +110,36 @@ def _normal(seed: int, shape, dtype, device) -> torch.Tensor:
     return torch.randn(shape, generator=g, dtype=dtype, device=device)
 
 
+def graph_route(graph, device: torch.device, host_piece: bool) -> bool:
+    """Whether a staircase TNT or a certificate LOBPCG runs as one captured
+    program (`graph_nodes.run_once`): `graph` as asked, None for "on a CUDA
+    card when the operator has no host piece". The captured program reads
+    nothing on the host, so an operator with a host round trip (the SuperLU
+    reduced-Laplacian solve above the dense limit, the Schur
+    preconditioner) keeps the host-read route; asking for the graph route
+    there raises."""
+    if graph is None:
+        return device.type == "cuda" and not host_piece
+    if graph and host_piece:
+        raise ValueError("the captured route needs the operator wholly on "
+                         "the device, and this one has a host round trip "
+                         "(the reduced-Laplacian solve above dense_limit); "
+                         "pass graph=False")
+    return bool(graph)
+
+
+def capturable(graph: bool, device: torch.device) -> bool:
+    """Whether the captured programs take ops/linalg.py's eigensolver and
+    QR (`capturable=True` there): on the graph route on a CUDA card. The
+    CPU runs the graph route's code only on the trace route (tests), with
+    LAPACK as the host route does."""
+    return bool(graph) and device.type == "cuda"
+
+
 def min_eig_lobpcg(apply_S, nd, seed: int, dtype, block=4, iters=200,
                    resid_tol=None, max_iters=20000, deflate=None,
-                   precon=None, device=None, syncs: HostSyncs | None = None):
+                   precon=None, device=None, syncs: HostSyncs | None = None,
+                   graph: bool = False, stats: dict | None = None):
     """Smallest eigenpair of a symmetric operator via basic LOBPCG (B=I, no
     constraints), on `device` (the default: `deflate`'s when it is a
     tensor, else the CUDA card, through `utils.resolve_device`; on a host
@@ -117,11 +149,21 @@ def min_eig_lobpcg(apply_S, nd, seed: int, dtype, block=4, iters=200,
     resid = |S v - theta v|. The Ritz value converges to lambda_min FROM
     ABOVE, so callers must treat (theta - resid) as the defensible estimate.
 
-    With resid_tol set, iterates until the eigen-residual satisfies
-    resid <= max(resid_tol, 0.5 |theta|) (the sign question "is lambda_min
-    >= -2 resid_tol?" is answered) or max_iters is exhausted; the test is
-    read on the host once per iteration (`syncs`). Without it, exactly
-    `iters` iterations and no reads.
+    The loop is the JAX package's `lax.while_loop` (`utils.bounded_while`):
+    carry (X, S X, P, k, theta, resid), at most `iters` trips, or with
+    `resid_tol` set at most `max_iters` trips while the eigen-residual is
+    above max(resid_tol, 0.5 |theta|) (the sign question "is lambda_min
+    >= -2 resid_tol?" is unanswered) or k < 2. On the host route the flag
+    is read once per trip (`syncs`); with `graph` the start's S X, the loop
+    and the final pair run as one captured program replayed once, and the
+    host reads nothing (apply_S and precon must then hold no host piece);
+    on a card its basis QR and Rayleigh-Ritz eigendecomposition then come
+    from ops/linalg.py (Gram-Schmidt, Jacobi sweeps) instead of cuSOLVER's
+    (`capturable`; torch.linalg.eigh reads its status on the host). `stats`,
+    when
+    given, receives the route, the iterations, the seconds until the
+    host has the result and, on the graph route, the warm-up, capture and
+    replay seconds and the pools' bytes.
 
     `deflate` ([nd, k]) keeps iterates orthogonal to span(deflate): the
     smallest eigenpair of S restricted to that complement. `precon` (V ->
@@ -138,6 +180,7 @@ def min_eig_lobpcg(apply_S, nd, seed: int, dtype, block=4, iters=200,
     if device is None and isinstance(deflate, torch.Tensor):
         device = deflate.device
     device = resolve_device(device)
+    on_device = capturable(graph, device)
 
     def ortho(X):
         return torch.linalg.qr(X)[0]
@@ -151,25 +194,13 @@ def min_eig_lobpcg(apply_S, nd, seed: int, dtype, block=4, iters=200,
         def proj(X):
             return X
 
-    X = ortho(proj(_normal(seed, (nd, block), dtype, device)))
+    X0 = ortho(proj(_normal(seed, (nd, block), dtype, device)))
     budget = iters if resid_tol is None else max_iters
     lock_tol = 0.0 if resid_tol is None else resid_tol
     drop_tol = float(torch.finfo(dtype).eps) ** 0.5
 
-    SX = apply_S(X)
-    P = torch.zeros_like(X)
-    k = 0
-    th = torch.zeros((), dtype=dtype, device=device)
-    resid = torch.full((), float("inf"), dtype=dtype, device=device)
-    while k < budget:
-        if resid_tol is not None and k >= 2:
-            # Stop once the SIGN question is resolved: theta is an upper
-            # bound on the (restricted) lambda_min, so a clearly negative
-            # theta is already a sound negative verdict; a positive theta
-            # certifies once the residual is safely below it.
-            unresolved = resid > torch.clamp(0.5 * th.abs(), min=resid_tol)
-            if not syncs.flag(unresolved):
-                break
+    def body(carry, running):
+        X, SX, P, k, _, _ = carry
         theta = torch.sum(X * SX, dim=0)
         Rres = SX - X * theta[None, :]
         resid_cols = torch.linalg.norm(Rres, dim=0)
@@ -179,7 +210,7 @@ def min_eig_lobpcg(apply_S, nd, seed: int, dtype, block=4, iters=200,
             Rres = precon(Rres)
         Rres = proj(Rres)
         V = torch.cat([X, Rres, P], dim=1)
-        Q, Rf = torch.linalg.qr(V)
+        Q, Rf = linalg.qr(V, on_device)
         dR = torch.abs(torch.diagonal(Rf))
         good = dR > drop_tol * torch.max(dR)
         good[:block] = True
@@ -190,31 +221,64 @@ def min_eig_lobpcg(apply_S, nd, seed: int, dtype, block=4, iters=200,
         big = 1e12 * (1.0 + torch.max(torch.abs(H)))
         H = torch.where(gmask, H, torch.zeros_like(H)) \
             + torch.diag(torch.where(good, torch.zeros_like(dR), big))
-        w, U = torch.linalg.eigh(H)
+        w, U = linalg.eigh(H, on_device)
         U = U * good[:, None]
         Xn = proj(Q @ U[:, :block])
         SXn = SQ @ U[:, :block]
-        P = proj(Xn - X @ (X.T @ Xn))
-        X, SX = Xn, SXn
+        Pn = proj(Xn - X @ (X.T @ Xn))
         th = w[0]
-        resid = torch.linalg.norm(SX[:, 0] - th * X[:, 0])
-        k += 1
-    syncs.note("lobpcg", k)
+        resid = torch.linalg.norm(SXn[:, 0] - th * Xn[:, 0])
+        return Xn, SXn, Pn, k + 1, th, resid
 
-    # Final pair from an EXACT operator application (the carried S X picks
-    # up the drift re-projections): the residual feeds the certificate's
-    # defensible bound.
-    SX = apply_S(X)
-    theta = torch.sum(X * SX, dim=0)
-    i0 = torch.argmin(theta)
-    v = X[:, i0]
-    th = theta[i0]
-    resid = torch.linalg.norm(SX[:, i0] - th * v)
+    def cond(carry):
+        k, th, resid = carry[3:]
+        if resid_tol is None:
+            return torch.ones((), dtype=torch.bool, device=k.device)
+        # Stop once the SIGN question is resolved: theta is an upper bound
+        # on the (restricted) lambda_min, so a clearly negative theta is
+        # already a sound negative verdict; a positive theta certifies once
+        # the residual is safely below it.
+        unresolved = resid > torch.clamp(0.5 * th.abs(), min=resid_tol)
+        return unresolved | (k < 2)
+
+    def solve():
+        carry = (X0, apply_S(X0), torch.zeros_like(X0),
+                 torch.zeros((), dtype=torch.int64, device=device),
+                 torch.zeros((), dtype=dtype, device=device),
+                 torch.full((), float("inf"), dtype=dtype, device=device))
+        X, _, _, k, _, _ = bounded_while(budget, cond, body, carry,
+                                         syncs=syncs, name="lobpcg")
+        # Final pair from an EXACT operator application (the carried S X
+        # picks up the drift re-projections): the residual feeds the
+        # certificate's defensible bound.
+        SX = apply_S(X)
+        theta = torch.sum(X * SX, dim=0)
+        i0 = torch.argmin(theta).reshape(1)
+        v = X.index_select(1, i0)[:, 0]
+        th = theta.index_select(0, i0)[0]
+        resid = torch.linalg.norm(SX.index_select(1, i0)[:, 0] - th * v)
+        return th, v, resid, k
+
+    t0 = time.perf_counter()
+    if graph:
+        from dpgo_tpu_torch.ops import graph_nodes
+        (th, v, resid, k), cap = graph_nodes.run_once(device, solve)
+        info = dict(route="graph", warmup_s=cap.warmup_s,
+                    capture_s=cap.capture_s, replay_s=cap.replay_s(),
+                    pool_bytes=cap.pool_bytes)
+    else:
+        th, v, resid, k = solve()
+        info = dict(route="host")
+    if stats is not None:
+        stats.update(info, iterations=int(k),
+                     seconds=time.perf_counter() - t0)
     return th, v, resid
 
 
 def certificate_lambda_bound(apply_S, Y, seed: int, dtype, tol, iters=200,
-                             precon=None, syncs: HostSyncs | None = None):
+                             precon=None, syncs: HostSyncs | None = None,
+                             graph: bool = False,
+                             stats: dict | None = None):
     """Defensible lower bound on lambda_min(S) at a (near-)stationary Y.
 
     At stationarity S Y = 0, so span(Y) is S's near-null space and the
@@ -225,13 +289,16 @@ def certificate_lambda_bound(apply_S, Y, seed: int, dtype, tol, iters=200,
                 backed: lamc_cons = theta - resid)
         lambda_min(S) >= ((lamc - eps) - sqrt((lamc + eps)^2 + 4 eps^2)) / 2
 
-    Returns (lam_lb, escape_vec, lamc_cons, eps)."""
+    The LOBPCG takes `graph` and fills `stats` (min_eig_lobpcg); the host
+    reads eps and the pair after it. Returns (lam_lb, escape_vec,
+    lamc_cons, eps)."""
     Yd = torch.as_tensor(Y, dtype=dtype)
     Q = torch.linalg.qr(Yd)[0]
-    eps = float(torch.linalg.norm(apply_S(Q)))
+    eps = torch.linalg.norm(apply_S(Q))
     lamc, vec, resid = min_eig_lobpcg(
         apply_S, Y.shape[0], seed, dtype, iters=iters, resid_tol=tol,
-        deflate=Yd, precon=precon, syncs=syncs)
+        deflate=Yd, precon=precon, syncs=syncs, graph=graph, stats=stats)
+    eps = float(eps)
     lamc_c = float(lamc) - float(resid)
     lam_lb = 0.5 * ((lamc_c - eps)
                     - float(np.sqrt((lamc_c + eps) ** 2 + 4.0 * eps ** 2)))
@@ -240,7 +307,9 @@ def certificate_lambda_bound(apply_S, Y, seed: int, dtype, tol, iters=200,
 
 def sesync(meas: Measurements, opts: SESyncOpts = SESyncOpts(),
            dtype=torch.float64, Y0: np.ndarray | None = None,
-           formulation: str = "simplified", device=None) -> SESyncResult:
+           formulation: str = "simplified", device=None,
+           graph: bool | None = None,
+           stats: dict | None = None) -> SESyncResult:
     """Full certifiably-correct solve (Riemannian staircase) on the CUDA card
     unless `device` names another.
 
@@ -248,13 +317,29 @@ def sesync(meas: Measurements, opts: SESyncOpts = SESyncOpts(),
     "sosync" (rotation-only), or "explicit" (joint (t, Y) variables).
     Certification always runs on the translation-eliminated certificate: at
     a joint stationary point the translations are optimal given Y, so the
-    same dual certificate S = Q - Lambda applies."""
+    same dual certificate S = Q - Lambda applies.
+
+    The TNT at each rank is one captured program replayed once (the JAX
+    package jits it; a capture per rank, since Y's width changes), and so
+    is a LOBPCG certificate, when `graph` (`graph_route`: by default on a
+    CUDA card up to the dense limit, where the operators have no host
+    piece); the projections in them then take Jacobi sweeps
+    (SESyncProblem.capturable). Otherwise the host-read route: one flag read
+    per loop trip (`prob.syncs`). `stats`, when given, receives the route
+    and per rank the TNT's host flag reads, its outer iterations, its
+    seconds (until the outer count is read) and, on the graph route, the
+    warm-up, capture and replay seconds and the pools' bytes; "lobpcg" the
+    LOBPCG certificates' stats."""
     from dpgo_tpu_torch.sesync.init import chordal_initialization
 
     prob = build_sesync_problem(
         meas, dtype=dtype, device=device,
         formulation="sosync" if formulation == "sosync" else "simplified")
     dev = prob.tau.device
+    graph = graph_route(graph, dev, prob.lred_host is not None)
+    prob = dataclasses.replace(prob, capturable=capturable(graph, dev))
+    stats = {} if stats is None else stats
+    stats.update(route="graph" if graph else "host", ranks=[], lobpcg=[])
     d, n = prob.d, prob.n
     r = opts.r0 or d
 
@@ -270,18 +355,42 @@ def sesync(meas: Measurements, opts: SESyncOpts = SESyncOpts(),
     explicit = formulation == "explicit"
     if explicit:
         eprob = build_sesync_explicit(meas, dtype=dtype, device=dev)
+        eprob = dataclasses.replace(eprob, base=dataclasses.replace(
+            eprob.base, capturable=prob.capturable))
         t = prob.recover_translations(prob.round_solution(Y))
         t = torch.cat([t, t.new_zeros((n, Y.shape[1] - d))], dim=1)
+        model = eprob.tnt_model()
+    else:
+        model = prob.tnt_model()
+
+    def solve(x):
+        """TNT at this rank from x, captured with `graph`."""
+        syncs0 = prob.syncs.count
+        trips0 = DeviceCounters.read("tnt.trips")
+        info = {"rank": Y.shape[1]}
+        t0 = time.perf_counter()
+        if graph:
+            from dpgo_tpu_torch.ops import graph_nodes
+            (x, *_), cap = graph_nodes.run_once(
+                dev, lambda: tnt_one(model, x, opts.tnt))
+            info.update(warmup_s=cap.warmup_s, capture_s=cap.capture_s,
+                        replay_s=cap.replay_s(), pool_bytes=cap.pool_bytes)
+        else:
+            x, *_ = tnt_one(model, x, opts.tnt, syncs=prob.syncs)
+        info.update(tnt_host_syncs=prob.syncs.count - syncs0,
+                    outer=DeviceCounters.read("tnt.trips") - trips0,
+                    seconds=time.perf_counter() - t0)
+        stats["ranks"].append(info)
+        return x
 
     status = "MaxRank"
     lam_min = np.nan
     vec = None
     for rank in range(r, opts.rmax + 1):
         if explicit:
-            (t, Y), *_ = tnt_one(eprob.tnt_model(), (t, Y), opts.tnt,
-                                 syncs=prob.syncs)
+            t, Y = solve((t, Y))
         else:
-            Y, *_ = tnt_one(prob.tnt_model(), Y, opts.tnt, syncs=prob.syncs)
+            Y = solve(Y)
         Lam = prob.Lambda_blocks(Y)
 
         def apply_S(V, Lam=Lam):
@@ -303,9 +412,12 @@ def sesync(meas: Measurements, opts: SESyncOpts = SESyncOpts(),
             # LOBPCG: the staged path was unavailable, or the PSD accept
             # failed only through a large stationarity defect eps (vec =
             # None) and a saddle escape direction is required.
+            info = {"rank": Y.shape[1]}
             lam_min, vec, lamc, eps = certificate_lambda_bound(
                 apply_S, Y, rank, dtype, opts.min_eig_tol,
-                iters=opts.lobpcg_iters, syncs=prob.syncs)
+                iters=opts.lobpcg_iters, syncs=prob.syncs, graph=graph,
+                stats=info)
+            stats["lobpcg"].append(info)
         if lam_min >= -opts.min_eig_tol:
             status = "GlobalOpt"
             break
@@ -620,7 +732,7 @@ def staged_lambda_bound(meas: Measurements, Lam, apply_S, Y, dtype,
         lamc_t, vec_t, resid_t = min_eig_lobpcg(
             apply_S, nd, 2, dtype, resid_tol=min_eig_tol, max_iters=2000,
             deflate=torch.as_tensor(Y_np, dtype=dtype, device=dev),
-            precon=pre, syncs=syncs)
+            precon=pre, syncs=syncs, graph=False)
         lamc, vec = float(lamc_t), vec_t.cpu().numpy()
         resid = float(resid_t)
         if resid > max(abs(lamc), min_eig_tol):
@@ -657,7 +769,8 @@ def certify_solution(meas: Measurements, R: np.ndarray,
                      min_eig_tol: float = 1e-5, dtype=torch.float64,
                      lobpcg_iters: int = 300, precon: str | None = "auto",
                      method: str = "auto", eta_psd: float = 1e-7,
-                     device=None, stats: dict | None = None):
+                     device=None, stats: dict | None = None,
+                     graph: bool | None = None):
     """Certify a candidate SO(d)^n solution of the PGO problem (the SE-Sync
     machinery applied to a DPGO output; the reference's fast_verification),
     with the operator on the CUDA card unless `device` names another.
@@ -666,27 +779,36 @@ def certify_solution(meas: Measurements, R: np.ndarray,
     translation-explicit certificate, then ARPACK, then Schur-preconditioned
     LOBPCG) and falls back to the deflated LOBPCG on breakdown;
     method="lobpcg" forces the LOBPCG (`precon`: "chebyshev" opt-in,
-    "auto" -> none). `stats`, when given, receives the route, the host
-    syncs and round trips (`HostSyncs.loops`) and the seconds spent in
-    device operator applications ("apply_S_s", each followed by a device
-    synchronization) and in all. Returns (certified, lambda_min,
-    suboptimality_bound, fxhat)."""
+    "auto" -> none). That LOBPCG runs as one captured program replayed once
+    when `graph` (`graph_route`: by default on a CUDA card up to the dense
+    limit). `stats`, when given, receives the route, the host syncs and
+    round trips (`HostSyncs.loops`), the applications of S (counted on the
+    device, "apply_S_calls"), the seconds in all and: on the host route the
+    seconds spent in device operator applications ("apply_S_s", each
+    followed by a device synchronization), on the graph route the
+    LOBPCG's ("lobpcg": its warm-up, capture and replay seconds, pools and
+    iterations). Returns (certified, lambda_min, suboptimality_bound,
+    fxhat)."""
     t_start = time.perf_counter()
     stats = {} if stats is None else stats
     prob = build_sesync_problem(meas, dtype=dtype, device=device)
     dev = prob.tau.device
+    graph = graph_route(graph, dev, prob.lred_host is not None)
     n, d = prob.n, prob.d
     Y = torch.as_tensor(np.swapaxes(np.asarray(R, np.float64), 1, 2)
                         .reshape(n * d, d), dtype=dtype, device=dev)
     Lam = prob.Lambda_blocks(Y)
-    timer = {"calls": 0, "s": 0.0}
+    timer = {"s": 0.0}
+    calls0 = DeviceCounters.read("sesync.apply_S")
 
     def apply_S(V):
+        DeviceCounters.bump("sesync.apply_S", dev)
+        if graph:
+            return prob.apply_S(Lam, V)
         t0 = time.perf_counter()
         out = prob.apply_S(Lam, V)
         if out.is_cuda:
             torch.cuda.synchronize(out.device)
-        timer["calls"] += 1
         timer["s"] += time.perf_counter() - t0
         return out
 
@@ -698,10 +820,13 @@ def certify_solution(meas: Measurements, R: np.ndarray,
         # candidate tr(Lambda) = <Q y, y> and the slack term vanishes.
         bound = max(0.0, fxhat - 0.5 * tr_lam) \
             + 0.5 * n * d * max(0.0, -min(lam_min, 0.0))
-        stats.update(apply_S_calls=timer["calls"], apply_S_s=timer["s"],
-                     seconds=time.perf_counter() - t_start,
-                     host_syncs=prob.syncs.count,
-                     loops={k: list(v) for k, v in prob.syncs.loops.items()})
+        stats.update(
+            apply_S_calls=DeviceCounters.read("sesync.apply_S") - calls0,
+            seconds=time.perf_counter() - t_start,
+            host_syncs=prob.syncs.count,
+            loops={k: list(v) for k, v in prob.syncs.loops.items()})
+        if not graph:
+            stats["apply_S_s"] = timer["s"]
         return lam_min >= -min_eig_tol, lam_min, bound, fxhat
 
     if method == "auto":
@@ -726,7 +851,9 @@ def certify_solution(meas: Measurements, R: np.ndarray,
         lam_max, _ = lanczos_extreme(mv_np, n * d, which="max", tol=1e-3,
                                      seed=3)
         pre = chebyshev_precon(apply_S, 1.05 * lam_max)
+    info = {}
     lam_min, _, lamc, eps = certificate_lambda_bound(
         apply_S, Y, 1, dtype, min_eig_tol, iters=lobpcg_iters, precon=pre,
-        syncs=prob.syncs)
+        syncs=prob.syncs, graph=graph, stats=info)
+    stats["lobpcg"] = info
     return finish(lam_min)

@@ -45,11 +45,15 @@ def main(argv=None):
           f"edges={len(meas)}  d={meas.d}")
 
     t0 = time.time()
+    stats = {}
     res = sesync(meas, SESyncOpts(rmax=args.rmax,
                                   min_eig_tol=args.min_eig_tol),
-                 formulation=args.formulation, device=device)
+                 formulation=args.formulation, device=device, stats=stats)
     dt = time.time() - t0
     print(f"status: {res.status}  (rank {res.rank}, {dt:.1f}s)")
+    print(f"route: {stats['route']} (" + (
+        "each rank's TNT one captured program" if stats["route"] == "graph"
+        else "loop flags read on the host") + ")")
     print(f"SDP value (2x):     {2 * res.sdp_val:.12g}")
     print(f"rounded F (2x):     {2 * res.fxhat:.12g}")
     print(f"lambda_min(S):      {res.lambda_min:.6e}")

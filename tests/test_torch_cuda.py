@@ -998,3 +998,113 @@ def test_polish_graph_route_matches_host_route(dev):
     assert graph["tnt_host_syncs"] == 0 and host["tnt_host_syncs"] > 0
     assert graph["outer"] == host["outer"] == 5
     np.testing.assert_allclose(f2, f2e, rtol=1e-10)
+
+
+# ------------------- the split polish over NCCL, SE-Sync's captured loops
+
+@pytest.mark.cuda
+def test_split_polish_nccl_graph_route_matches_host_route(dev):
+    """The split polish over NCCL (one rank on cuda:0, grid3D_synth, 8
+    nodes, float64) takes the graph route: no host flag read over the
+    polish, 2f within 1e-10 of the host-read route's from the same start,
+    exchanges and collectives per CG iteration within 0.1 of its (device
+    counters on both routes), with and without segment levels."""
+    import torch_spmd_ranks as ranks  # tests/ (pytest puts it on the path)
+
+    from dpgo_tpu_torch.parallel.launch import spawn
+    graphs = {"d3": _grid3d(), "num_nodes": 8}
+    res = spawn(ranks.nccl_polish_checks, 1, backend="nccl",
+                devices=["cuda:0"], args=(graphs,), deadline=300.0)[0]
+    for name in ("polish", "polish_levels"):
+        g, h = res[(name, False)], res[(name, True)]
+        assert (g["route"], h["route"]) == ("graph", "host")
+        assert g["host_syncs"] == 0 < h["host_syncs"]
+        np.testing.assert_allclose(g["f2"], h["f2"], rtol=1e-10)
+        for k in ("exchanges", "collectives"):
+            assert abs(g[k] / g["cg_iterations"]
+                       - h[k] / h["cg_iterations"]) <= 0.1, k
+
+
+@pytest.mark.cuda
+def test_lobpcg_graph_route_matches_host_route(dev):
+    """min_eig_lobpcg as one captured program (Jacobi Rayleigh-Ritz) on a
+    certificate-like spectrum, deflated, to a residual tolerance: no host
+    flag read, theta within 1e-8 of the host route's (torch.linalg.eigh),
+    and the same smallest eigenvalue as numpy on the complement (1e-6)."""
+    from dpgo_tpu_torch.sesync.staircase import min_eig_lobpcg
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    rng = np.random.default_rng(42)
+    n = 300
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    w = np.concatenate([[1e-3], np.geomspace(1.0, 1e3, n - 1)])
+    S = torch.tensor((Q * w[None, :]) @ Q.T, device=dev)
+    D = torch.tensor(rng.normal(size=(n, 3)), device=dev)
+    out = {}
+    for graph in (True, False):
+        syncs, stats = HostSyncs(), {}
+        th, _, _ = min_eig_lobpcg(lambda V: S @ V, n, 0, torch.float64,
+                                  iters=400, deflate=D, syncs=syncs,
+                                  graph=graph, stats=stats)
+        out[graph] = (float(th), syncs.count, stats)
+    assert out[True][2]["route"] == "graph" and out[True][1] == 0
+    assert out[False][2]["route"] == "host" and out[False][1] > 0
+    assert abs(out[True][0] - out[False][0]) <= 1e-8
+    Qd, _ = np.linalg.qr(D.cpu().numpy())
+    P = np.eye(n) - Qd @ Qd.T
+    want = np.linalg.eigvalsh(P @ S.cpu().numpy() @ P + 1e6 * Qd @ Qd.T)[0]
+    assert abs(out[True][0] - want) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("formulation", ["simplified", "sosync", "explicit"])
+def test_sesync_graph_route_matches_host_route(dev, formulation):
+    """sesync on grid3D_synth with each rank's TNT (and sosync's LOBPCG
+    certificate) captured: the same status and rank as the host-read
+    route, 2 SDP within 1e-10, no host flag read in the captured TNTs."""
+    from dpgo_tpu_torch.sesync.staircase import sesync
+
+    out = {}
+    for graph in (True, False):
+        stats = {}
+        res = sesync(_grid3d(), formulation=formulation, device=dev,
+                     graph=graph, stats=stats)
+        out[graph] = (res, stats)
+    (g, gs), (h, hs) = out[True], out[False]
+    assert (gs["route"], hs["route"]) == ("graph", "host")
+    assert (g.status, g.rank) == (h.status, h.rank) == ("GlobalOpt", 3)
+    np.testing.assert_allclose(g.sdp_val, h.sdp_val, rtol=1e-10)
+    assert all(r["tnt_host_syncs"] == 0 for r in gs["ranks"])
+    assert all(r["tnt_host_syncs"] > 0 for r in hs["ranks"])
+    if formulation == "sosync":
+        assert [x["route"] for x in gs["lobpcg"]] == ["graph"]
+
+
+@pytest.mark.cuda
+def test_certify_lobpcg_graph_route_matches_host_route(dev):
+    """certify_solution(method="lobpcg") on grid3D_synth's staircase
+    optimum and a rotated control with the LOBPCG captured: the host
+    route's verdicts (certified / rejected), lambda_min within 1e-5, no
+    host sync in the certificate, S applications counted on the device."""
+    from dpgo_tpu_torch.sesync.staircase import certify_solution, sesync
+
+    meas = _grid3d()
+    R = sesync(meas, device=dev).R
+    th = 0.5
+    turn = np.array([[np.cos(th), -np.sin(th), 0.0],
+                     [np.sin(th), np.cos(th), 0.0], [0.0, 0.0, 1.0]])
+    R_bad = R.copy()
+    R_bad[100:200] = turn @ R_bad[100:200]
+    for cand, want in ((R, True), (R_bad, False)):
+        res = {}
+        for graph in (True, False):
+            stats = {}
+            ok, lam, _, _ = certify_solution(meas, cand, method="lobpcg",
+                                             device=dev, graph=graph,
+                                             stats=stats)
+            res[graph] = (ok, lam, stats)
+        (gok, glam, gst), (hok, hlam, hst) = res[True], res[False]
+        assert gok == hok == want
+        assert abs(glam - hlam) <= 1e-5
+        assert gst["lobpcg"]["route"] == "graph" and gst["host_syncs"] == 0
+        assert gst["apply_S_calls"] > 0 and hst["apply_S_calls"] > 0

@@ -567,3 +567,87 @@ def nccl_graph_checks(rank: int, world_size: int, device,
         raised=raised, no_graph=solver._graph is None,
         eager_ran=k == 2 and bool(torch.isfinite(st.Z.t).all()))
     return out
+
+
+# ------------------------------------------- the split polish's trace
+
+def trace_run_once(device, fn):
+    """graph_nodes.run_once on the "trace" route: nothing is captured, and
+    `fn` runs with every branch and loop trip merged, which is what the
+    captured program's conditional nodes compute."""
+    import types
+
+    from dpgo_tpu_torch.utils import route
+
+    with route("trace"):
+        out = fn()
+    return out, types.SimpleNamespace(capture_s=0.0, warmup_s=0.0,
+                                      pool_bytes=0, replay_s=lambda: 0.0)
+
+
+def _polish_route(name, graphs, device, trace: bool,
+                  bodies: bool = True) -> dict:
+    """drive() of a polish case on the host-read route, or (`trace`) on the
+    graph route's code (`_graph_route` and `_bodies_capture_collectives`
+    forced, since on the card the capture is taken at world size 1 only;
+    graph_nodes.run_once on the trace route): 2f, history, stats, rows and
+    the host flag reads."""
+    from dpgo_tpu_torch.ops import graph_nodes
+    from dpgo_tpu_torch.utils import DeviceCounters, HostSyncs
+
+    solver, c = make_solver(name, graphs, device, sharded=True)
+    solver.syncs = HostSyncs()
+    DeviceCounters.reset()
+    saved = graph_nodes.run_once
+    if trace:
+        graph_nodes.run_once = trace_run_once
+        solver._graph_route = lambda: True
+        if bodies:
+            solver._bodies_capture_collectives = lambda: True
+    try:
+        res = drive(solver, c)
+    finally:
+        graph_nodes.run_once = saved
+    res.update(host_syncs=solver.syncs.count, node_lo=solver.node_lo,
+               node_hi=solver.node_hi)
+    return res
+
+
+def polish_trace_cases(rank: int, world_size: int, device,
+                       graphs: dict) -> dict:
+    """Per case of POLISH_CASES on this rank: the split polish on the
+    host-read route and on the graph route's code (`_polish_route`), from
+    one start. Returns {case: {"host": ..., "trace": ...}}, and under
+    "world_route" the route the default case takes where the graph route
+    is asked for but the world's collectives cannot be captured in
+    conditional bodies (`_bodies_capture_collectives` as on the card)."""
+    torch.set_num_threads(1)
+    out = {name: {"host": _polish_route(name, graphs, device, False),
+                  "trace": _polish_route(name, graphs, device, True)}
+           for name in POLISH_CASES}
+    out["world_route"] = _polish_route("polish", graphs, device, True,
+                                       bodies=False)["polish_counts"]["route"]
+    return out
+
+
+def nccl_polish_checks(rank: int, world_size: int, device,
+                       graphs: dict) -> dict:
+    """On a card over NCCL (tests/test_torch_cuda.py): the split polish of
+    the cases "polish" and "polish_levels" on the graph route (the TNT
+    captured, its collectives inside) and on the host-read route
+    (`eager=True`) from one start: 2f, host flag reads over the polish and
+    the polish's stats, per route."""
+    from dpgo_tpu_torch.utils import HostSyncs
+
+    out = {}
+    for name in ("polish", "polish_levels"):
+        solver, c = make_solver(name, graphs, device, sharded=True)
+        st = solver.initialize()
+        for eager in (False, True):
+            solver.syncs = HostSyncs()
+            _, f2 = solver.polish(st, **dict(c["polish"], eager=eager))
+            out[(name, eager)] = dict(
+                f2=f2, host_syncs=solver.syncs.count,
+                **{k: v for k, v in solver.polish_stats.items()
+                   if k != "history"})
+    return out
