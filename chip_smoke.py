@@ -140,9 +140,11 @@ seconds, and the end the whole run's.
    kernels are built here, on rim_synth (16 nodes, dense path, refined
    preset, float32, from rim's chordal start):
    - nccl1: over NCCL at world size 1 on cuda:0, on the graph route (the
-     step captured with its NCCL collectives, 0 host syncs per step held):
-     first probe_nccl_conditional (an all_reduce and an all_gather inside
-     IF and WHILE bodies, held equal to eager); `ShardedDPGOSolver`, halo
+     step captured with its NCCL collectives, 0 host syncs per step held;
+     the program four ranks run, NCCL_GRAPH_MIXING_SUPPORT=0 as
+     parallel/launch.py sets it): first probe_nccl_conditional (an
+     all_reduce and an all_gather inside IF and WHILE bodies, held equal
+     to eager); `ShardedDPGOSolver`, halo
      "boundary", 150 steps, and `ShardedDPGOStarSolver`, 50 steps (its
      master fallbacks' collectives inside IF bodies), each also on the
      host-read route in the same rank (2f within 1e-3 of the graph
@@ -2042,24 +2044,50 @@ def sharded_polish(solver, st, kw, device) -> dict:
             "poses": solver.pose_split().hi - solver.pose_split().lo}
 
 
-def probe_nccl_conditional(comm, device) -> dict:
+def probe_nccl_conditional(comm, device, nodes: dict | None = None) -> dict:
     """Can an NCCL collective be captured inside a conditional node's body?
     On this rank's group (`comm`, spmd.Collectives), each case captured
     alone (graph_nodes.warm_and_capture), replayed once and held against
     the same code run eagerly: an all_reduce and an all_gather at the top
     level of a graph (the control), inside an IF body, and inside a WHILE
-    body of three trips. Returns {case: "ok" or what failed}."""
+    body of three trips. Returns {case: "ok" or what failed}. With
+    `nodes`, fills nodes[case] with the types of the graph nodes the first
+    collective of the case's capture recorded (graph_nodes.
+    capture_node_types of the graph its stream captures into, before and
+    after the call), or with the types before a call that raised."""
+    import collections
+
     import torch
 
     from dpgo_tpu_torch.ops import graph_nodes
-    from dpgo_tpu_torch.utils import bounded_while, device_cond
+    from dpgo_tpu_torch.utils import bounded_while, current_route, device_cond
 
     x = torch.arange(1.0, 9.0, device=device)
     one = torch.ones((), dtype=torch.int64, device=device)
+    case = [None]
 
+    def recorded(op):
+        def run(v):
+            if nodes is None or current_route() != "capture" \
+                    or case[0] in nodes:
+                return op(v)
+            before = graph_nodes.capture_node_types()
+            try:
+                out = op(v)
+            except Exception:
+                nodes[case[0]] = ["raised after"] + before
+                raise
+            added = (collections.Counter(graph_nodes.capture_node_types())
+                     - collections.Counter(before))
+            nodes[case[0]] = sorted(added.elements())
+            return out
+        return run
+
+    @recorded
     def reduce(v):
         return comm.all_reduce(v)
 
+    @recorded
     def gather(v):
         return comm.all_gather(v[None])[comm.rank]
 
@@ -2080,6 +2108,7 @@ def probe_nccl_conditional(comm, device) -> dict:
              "while_all_gather": in_while(gather)}
     out = {}
     for name, fn in cases.items():
+        case[0] = name
         want = fn().clone()
         try:
             got, _ = graph_nodes.run_once(device, fn)
@@ -2100,7 +2129,8 @@ def collective_counts() -> dict:
     return {n: DeviceCounters.read(n) for n in Collectives.COUNTERS}
 
 
-def sharded_rank(rank, world_size, device, jobs, card, probe_first=True):
+def sharded_rank(rank, world_size, device, jobs, card, probe_first=True,
+                 log=None):
     """One rank of the sharded phase: for each job, build the sharded
     solver on this rank's nodes once (in the job's type, float32 unless it
     names another), then for each of the job's runs (a halo strategy and a
@@ -2116,8 +2146,8 @@ def sharded_rank(rank, world_size, device, jobs, card, probe_first=True):
     the host-read route with history, timed; a run with `profile` (at,
     steps) adds profile_path's window (and the host-read route's, with
     `eager`). Over NCCL (with `probe_first`) the first record also
-    carries the answer of probe_nccl_conditional. Returns one record per
-    run."""
+    carries the answer of probe_nccl_conditional. `log(text)` (optional)
+    is told as each part of a run ends. Returns one record per run."""
     import numpy as np
     import torch
 
@@ -2127,6 +2157,7 @@ def sharded_rank(rank, world_size, device, jobs, card, probe_first=True):
     from dpgo_tpu_torch.solvers.tnt import TNTParams
 
     t_rank = time.perf_counter()
+    log = log or (lambda text: None)
     # The ranks share the host's cores.
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
     out = []
@@ -2170,9 +2201,13 @@ def sharded_rank(rank, world_size, device, jobs, card, probe_first=True):
             if not steps:
                 rec["polish"] = sharded_polish(solver, st, run["polish"],
                                                device)
+                log(f"{run['key']}: polish ({rec['polish']['route']} route) "
+                    f"{rec['polish']['seconds']:.2f} s")
                 if run.get("eager"):
                     rec["polish_eager"] = sharded_polish(
                         solver, st, dict(run["polish"], eager=True), device)
+                    log(f"{run['key']}: polish, host-read route, "
+                        f"{rec['polish_eager']['seconds']:.2f} s")
                 out.append(rec)
                 del solver, st
                 continue
@@ -2181,6 +2216,7 @@ def sharded_rank(rank, world_size, device, jobs, card, probe_first=True):
             st, _, (f, g) = solver.run_steps_history(st, 0, steps)
             _sync(device)
             secs = time.perf_counter() - t0
+            log(f"{run['key']}: {steps} steps with history, {secs:.2f} s")
             launches = kernel_counts()
             coll = collective_counts()
             fh = f.cpu().numpy()
@@ -2218,9 +2254,12 @@ def sharded_rank(rank, world_size, device, jobs, card, probe_first=True):
                 rec.update(it_s=steps / (time.perf_counter() - t0),
                            host_syncs_per_step=(solver.syncs.count - syncs0)
                            / steps, timed=True)
+                log(f"{run['key']}: timed run {steps / rec['it_s']:.2f} s")
             if run.get("eager"):
                 rec["eager"] = sharded_eager_run(solver, job["init"], steps,
                                                  device)
+                log(f"{run['key']}: host-read route "
+                    f"{steps / rec['eager']['it_s']:.2f} s")
             if run.get("profile"):
                 label = f"sharded {run['key']} rank {rank} ({comm.backend})"
                 rec["profile"] = profile_path(label, solver, job["init"],

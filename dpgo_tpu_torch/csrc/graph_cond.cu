@@ -16,7 +16,11 @@
 //                    the child stream into the node's body graph;
 //   dpgo_cond_set    launches `set_cond` on a stream (a WHILE body ends with
 //                    it: the loop runs again while the flag is set);
-//   dpgo_cond_end    ends the child stream's capture into the body.
+//   dpgo_cond_end    ends the child stream's capture into the body;
+//   dpgo_capture_node_types
+//                    lists the types of the nodes of the graph a stream is
+//                    capturing into, child graphs expanded (a diagnostic:
+//                    what a library call records under capture).
 //
 // The caller (dpgo_tpu_torch/ops/graph_nodes.py) makes the child stream
 // PyTorch's current stream between begin and end, so every operation of the
@@ -27,6 +31,8 @@
 // latency); the node itself costs the device no memory traffic.
 
 #include <cuda_runtime.h>
+
+#include <vector>
 
 namespace {
 
@@ -115,4 +121,57 @@ extern "C" int dpgo_cond_set(unsigned long long handle, const void* flag,
 extern "C" int dpgo_cond_end(void* child) {
   cudaGraph_t body;
   return cudaStreamEndCapture(static_cast<cudaStream_t>(child), &body);
+}
+
+namespace {
+
+// Depth-first over `graph`: depth * 256 + cudaGraphNodeType per node.
+cudaError_t walk(cudaGraph_t graph, int depth, int* out, int cap, int* n) {
+  size_t count = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &count);
+  if (err != cudaSuccess) return err;
+  std::vector<cudaGraphNode_t> nodes(count);
+  if (count) err = cudaGraphGetNodes(graph, nodes.data(), &count);
+  if (err != cudaSuccess) return err;
+  for (cudaGraphNode_t node : nodes) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(node, &type);
+    if (err != cudaSuccess) return err;
+    if (*n < cap) out[*n] = depth * 256 + static_cast<int>(type);
+    ++*n;
+    if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(node, &child);
+      if (err != cudaSuccess) return err;
+      err = walk(child, depth + 1, out, cap, n);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The node types of the graph `stream` is capturing into (at most `cap`
+// written to `out`; `*n_out` the number of nodes in all).
+extern "C" int dpgo_capture_node_types(void* stream, int* out, int cap,
+                                       int* n_out) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  unsigned long long id = 0;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t ndeps = 0;
+#if CUDART_VERSION >= 13000
+  cudaError_t err = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, &id, &graph, &deps,
+      nullptr, &ndeps);
+#else
+  cudaError_t err = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, &id, &graph, &deps, &ndeps);
+#endif
+  if (err != cudaSuccess) return err;
+  if (status != cudaStreamCaptureStatusActive)
+    return cudaErrorStreamCaptureImplicit;
+  *n_out = 0;
+  return walk(graph, 0, out, cap, n_out);
 }

@@ -748,7 +748,8 @@ class _StepGraph:
         self.k.add_(1)
 
     def replay(self) -> None:
-        self.captured.graph.replay()
+        from dpgo_tpu_torch.ops import graph_nodes
+        graph_nodes.replay(self.captured.graph)
 
     def matches(self, key: tuple) -> bool:
         return (all(a is b for a, b in zip(self.key[0], key[0]))

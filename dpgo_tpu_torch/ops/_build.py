@@ -49,6 +49,8 @@ _SIGNATURES = {
     "dpgo_cond_begin": [_P, _P, _P, _I, _P],
     "dpgo_cond_set": [ctypes.c_ulonglong, _P, _P],
     "dpgo_cond_end": [_P],
+    # (stream, int* types out, capacity, int* count out)
+    "dpgo_capture_node_types": [_P, _P, _I, _P],
 }
 
 

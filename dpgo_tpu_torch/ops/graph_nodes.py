@@ -20,6 +20,12 @@ stream d, so sibling bodies at one depth share a stream and its cached
 blocks; bodies run in graph order, so a block freed by one body is safe for
 the next.
 
+Over NCCL the groups run with NCCL_GRAPH_MIXING_SUPPORT=0
+(parallel/launch.py), which admits collectives inside conditional bodies
+above world size 1; NCCL then asks that no collective be launched outside
+a graph while a graph launch is outstanding, so every replay goes through
+`replay` and the collectives `settle` the card before an uncaptured launch.
+
 Nothing here runs at import time; the library is loaded at the first node.
 """
 
@@ -46,6 +52,7 @@ class _Capture:
     active = None   # (device index, pool handle) while capturing
     depth = 0
     streams: dict = {}   # (device index, depth) -> torch.cuda.Stream
+    outstanding = False  # a replay since the last settle
 
 
 def child_stream(index: int, depth: int) -> torch.cuda.Stream:
@@ -79,6 +86,7 @@ def warm_streams(device: torch.device, depth: int = 8) -> None:
                 torch.bmm(x[None], x[None])
         cur.wait_stream(s)
     torch.cuda.synchronize(device)
+    _Capture.outstanding = False
 
 
 @contextlib.contextmanager
@@ -149,6 +157,47 @@ def again(handle: int, flag: torch.Tensor) -> None:
     _build.check(_build.load().dpgo_cond_set(handle, flag.data_ptr(), stream),
                  "graph conditional set")
     DeviceCounters.bump("graph_cond", flag.device)
+
+
+def replay(graph: torch.cuda.CUDAGraph) -> None:
+    """Launch a captured graph (marks a launch outstanding: `settle`)."""
+    graph.replay()
+    _Capture.outstanding = True
+
+
+def settle(device: torch.device) -> None:
+    """Before a collective launched outside a capture: wait for the card
+    if a graph was replayed since the last wait (NCCL without graph-mixing
+    support asks that no uncaptured collective follow an outstanding graph
+    launch). One host wait per run of replays; nothing inside a capture."""
+    if _Capture.outstanding and _Capture.active is None:
+        torch.cuda.synchronize(device)
+        _Capture.outstanding = False
+
+
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "event_wait", "event_record", "ext_semaphore_signal",
+              "ext_semaphore_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+
+
+def capture_node_types(stream=None, cap: int = 4096) -> list:
+    """The types of the nodes recorded so far into the graph `stream` (the
+    current stream) is capturing into: a body graph on a conditional
+    node's child stream. Child graphs are expanded after their node, their
+    nodes' names prefixed by "child:" per level. A diagnostic of what a
+    library call records under capture."""
+    stream = stream or torch.cuda.current_stream()
+    out = (ctypes.c_int * cap)()
+    n = ctypes.c_int()
+    _build.check(_build.load().dpgo_capture_node_types(
+        stream.cuda_stream, out, cap, ctypes.byref(n)), "graph node types")
+    names = []
+    for code in out[:min(n.value, cap)]:
+        depth, kind = divmod(code, 256)
+        name = NODE_TYPES[kind] if kind < len(NODE_TYPES) else f"type{kind}"
+        names.append("child:" * depth + name)
+    return names
 
 
 @dataclasses.dataclass
@@ -227,7 +276,7 @@ def run_once(device: torch.device, fn):
     cap.replay_events = (torch.cuda.Event(enable_timing=True),
                          torch.cuda.Event(enable_timing=True))
     cap.replay_events[0].record()
-    cap.graph.replay()
+    replay(cap.graph)
     cap.replay_events[1].record()
     leaves, rebuild = flatten(cap.out)
     return rebuild([x.clone() for x in leaves]), cap

@@ -57,10 +57,32 @@ def rank_device(local_rank: int, backend: str, device=None) -> torch.device:
     return torch.device("cuda", local_rank % cards)
 
 
+# What NCCL reads from the environment when a group's communicator is made.
+# Without graph-mixing support NCCL records a captured collective as kernel
+# (and copy) nodes only; with it (NCCL's default) it adds event-record and
+# event-wait nodes, which a conditional node's body refuses: above world
+# size 1 an all_reduce or all_gather inside an IF or WHILE body then fails
+# its capture (NVIDIA H100s, NCCL 2.28.9, tools/nccl4_graph.py --probe),
+# and AMM-PGO*'s master branches and the split polish's loops hold
+# collectives there. The price: no uncaptured collective may follow a graph
+# launch still outstanding, which the collectives wait out
+# (ops/graph_nodes.settle). A value the caller's environment names is kept.
+NCCL_ENV = {"NCCL_GRAPH_MIXING_SUPPORT": "0"}
+
+
+def nccl_environment(backend: str) -> None:
+    """NCCL_ENV into this process's environment for an NCCL group, where
+    the environment names no value; nothing for other backends."""
+    if backend == "nccl":
+        for k, v in NCCL_ENV.items():
+            os.environ.setdefault(k, v)
+
+
 def _init_group(backend: str, rank: int, world_size: int, device,
                 init_method: str, timeout: float) -> None:
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    nccl_environment(backend)
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout))

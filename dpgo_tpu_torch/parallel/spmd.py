@@ -28,7 +28,10 @@ per node and runs no collective.
 
 Under gloo on a CUDA card (several ranks sharing one card) every buffer is
 copied to the host before a collective and back after it; the copies are
-counted (`Collectives.host_copies`).
+counted (`Collectives.host_copies`). Over NCCL the captured programs hold
+their collectives inside conditional bodies too (AMM-PGO*'s master
+branches, the split polish's WHILE loops), which NCCL admits above world
+size 1 only without its graph-mixing support (parallel/launch.py).
 
 The polish splits the pose axis the same way (`PoseSplit`): a rank holds
 the poses of its nodes and the edges touching them, fills the halo rows
@@ -153,6 +156,9 @@ class Collectives:
         self.host_copies = 0
 
     def _wire(self, x: torch.Tensor) -> torch.Tensor:
+        if self.backend == "nccl" and self.device.type == "cuda":
+            from dpgo_tpu_torch.ops import graph_nodes
+            graph_nodes.settle(self.device)
         x = x.contiguous()
         if self.staged:
             self._copied()
@@ -192,8 +198,9 @@ class Collectives:
 
     def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM
                    ) -> torch.Tensor:
-        xw = (self._wire(x) if self.staged
-              else x.clone(memory_format=torch.contiguous_format))
+        xw = self._wire(x)
+        if xw is x:  # reduced in place: not into the caller's tensor
+            xw = x.clone()
         dist.all_reduce(xw, op=op, group=self.group)
         self._count(xw)
         return self._back(xw)
@@ -404,30 +411,13 @@ class _Sharded:
 
     # ------------------------------------------------------- stepping
 
-    # Whether the captured step holds collectives inside conditional bodies
-    # (AMM-PGO*'s master branches).
-    COLLECTIVES_IN_BODIES = False
-
     def _graph_route(self) -> bool:
-        """The graph route over NCCL on a CUDA card (the halo exchange, and
-        at world size 1 the master's all_reduces inside its IF bodies, are
-        recorded into the captured step); gloo keeps the host-read route:
-        its collectives run on the host (staged through it on a card),
-        which a CUDA graph cannot record. A step with collectives inside
-        conditional bodies keeps the host-read route where
-        `_bodies_capture_collectives` says they cannot be captured."""
-        return (self.comm.backend == "nccl" and super()._graph_route()
-                and (not self.COLLECTIVES_IN_BODIES
-                     or self._bodies_capture_collectives()))
-
-    def _bodies_capture_collectives(self) -> bool:
-        """Whether NCCL collectives can be captured inside an IF or WHILE
-        body: at world size 1. At world size 4 (NVIDIA H100s, NCCL 2.28,
-        `tools/nccl4_graph.py --probe`) an all_reduce or all_gather there
-        fails the capture with cudaErrorInvalidValue, while at the top
-        level of the graph it captures (the boundary and ring exchanges of
-        AMM-PGO#'s step)."""
-        return self.num_ranks == 1
+        """The graph route over NCCL on a CUDA card, at every world size
+        (the halo exchange, and AMM-PGO*'s master all_reduces inside its
+        IF bodies, recorded into the captured step); gloo keeps the
+        host-read route: its collectives run on the host (staged through it
+        on a card), which a CUDA graph cannot record."""
+        return self.comm.backend == "nccl" and super()._graph_route()
 
     def _graph_key(self, st) -> tuple:
         # The captured exchange follows the strategy it was recorded with.
@@ -496,10 +486,9 @@ class _Sharded:
         the same collectives.
 
         With `graph` (polish() asks for it where `_graph_route` holds: NCCL
-        on a CUDA card) and where `_bodies_capture_collectives` (world size
-        1), the TNT is one captured program replayed once, its halo
-        exchanges and all_reduces recorded inside the WHILE bodies of TNT
-        and STPCG; the model's and the coarse levels' set-up (their
+        on a CUDA card), the TNT is one captured program replayed once, its
+        halo exchanges and all_reduces recorded inside the WHILE bodies of
+        TNT and STPCG; the model's and the coarse levels' set-up (their
         collectives too) runs before the capture, the final all_gather
         after it. Otherwise the host-read route. The stats add this rank's
         exchanges, collectives, bytes and host copies up to that
@@ -513,7 +502,7 @@ class _Sharded:
         t2, R2, fx, stats = self._run_polish_tnt(
             sp.edges, own, params, node_precon, coarse, coarse_segments,
             exchange=self.exchange_rows, reduce=comm.all_reduce,
-            graph=graph and self._bodies_capture_collectives())
+            graph=graph)
         after = {n: DeviceCounters.read(n) - before[n]
                  for n in self.POLISH_COUNTERS}
         stats.update(exchanges=after["row_exchanges"],
@@ -565,10 +554,10 @@ class ShardedDPGOSolver(_Sharded, DPGOSolver):
     gathered once and the solver re-initialized at it, the same
     (state, 2f) on every rank; `polish_stats` counts the polish's
     exchanges, collectives, bytes and host copies beside its CG
-    iterations. Over NCCL on a card at world size 1 the polish's TNT is
-    one captured program, collectives inside, replayed once (the graph
-    route, as for the steps); `polish(eager=True)`, gloo and larger NCCL
-    worlds (`_bodies_capture_collectives`) take the host-read route."""
+    iterations. Over NCCL on a card the polish's TNT is one captured
+    program, collectives inside, replayed once (the graph route, as for the
+    steps), at every world size; `polish(eager=True)` and gloo take the
+    host-read route."""
 
 
 class ShardedDPGOStarSolver(_Sharded, DPGOStarSolver):
@@ -577,10 +566,7 @@ class ShardedDPGOStarSolver(_Sharded, DPGOStarSolver):
     exchanged halos (no physical master; reference DPGOStar.cpp:126-213),
     and the psi-test's squared step is summed over all ranks, so every rank
     takes the same fallbacks (`fallbacks` is equal on all ranks). Its
-    master's all_reduces sit inside the step's IF bodies, so over NCCL it
-    takes the graph route at world size 1 only."""
-
-    COLLECTIVES_IN_BODIES = True
+    master's all_reduces sit inside the step's IF bodies."""
 
     def _global_f(self, t_own, R_own):
         Z = self._exchange_halos(NodeState(t=t_own, R=R_own, th=None,

@@ -979,6 +979,38 @@ def test_sharded_nccl_failed_capture_raises(dev):
 
 
 @pytest.mark.cuda
+def test_capture_node_types_see_the_recorded_nodes(dev):
+    """graph_nodes.capture_node_types lists the nodes recorded so far into
+    the graph the current stream captures into: a kernel at the top level,
+    and inside an IF body the body's own kernel, not the top level's."""
+    from dpgo_tpu_torch.ops import graph_nodes
+    from dpgo_tpu_torch.utils import current_route, device_cond
+
+    x = torch.ones(8, device=dev)
+    seen = {}
+
+    def note(key):
+        # The warm-up before the capture runs fn on another route.
+        if current_route() == "capture":
+            seen[key] = graph_nodes.capture_node_types()
+
+    def fn():
+        y = x * 2.0
+        note("top")
+
+        def body():
+            z = y + 1.0
+            note("body")
+            return z
+        return device_cond(y.sum() > 0, body, lambda: y)
+
+    out, _ = graph_nodes.run_once(dev, fn)
+    assert torch.equal(out, torch.full_like(x, 3.0))
+    assert "kernel" in seen["top"]
+    assert seen["body"] == ["kernel"]
+
+
+@pytest.mark.cuda
 def test_polish_graph_route_matches_host_route(dev):
     """DPGOSolver.polish on the card runs its TNT as one captured program
     (no host flag read in it) and reaches the host-read route's 2f within

@@ -4,8 +4,8 @@ f64, against the JAX package's single-process solvers and the port's.
 One process group of 2 ranks and one of 4 (module-scoped fixtures, one spawn
 each) run every case of tests/torch_spmd_ranks.py on the 64-pose, d = 3,
 40-loop-closure graph with 8 nodes of tests/test_spmd.py (d = 2: the same
-generator); each case is a test of its own. The JAX package's sharded Star
-at psi = phi = 1e3 is run in a subprocess (it deadlocks; see
+generator); each case is a test of its own. Why the JAX package's sharded
+Star deadlocks at psi = phi = 1e3 is pinned from its own quantities (see
 test_jax_sharded_star_forced_fallbacks_deadlock)."""
 
 import concurrent.futures
@@ -62,24 +62,6 @@ def _graphs():
             "num_nodes": NUM_NODES}
 
 
-JAX_STAR_SCRIPT = """
-import jax
-jax.config.update('jax_platforms', 'cpu')
-jax.config.update('jax_enable_x64', True)
-import jax.numpy as jnp, numpy as np
-from tests.synthetic import random_pose_graph
-from dpgo_tpu.parallel.spmd import ShardedDPGOStarSolver
-from dpgo_tpu.solvers.mm import MMOptions
-meas, _, _ = random_pose_graph(np.random.default_rng(42), num_poses=64, d=3,
-                               loop_closures=40)
-s = ShardedDPGOStarSolver(meas, num_nodes=8, opts=MMOptions(psi=1e3, phi=1e3))
-st = s.initialize()
-for k in range(2):
-    st = s._step(st, jnp.asarray(k, jnp.int32))
-    print('step', k, 'done', float(s._metrics(st)[0]), flush=True)
-"""
-
-
 # The JAX references, computed in a pool of processes while the ranks run
 # (costliest first); the halo strategies share their JAX run.
 JAX_CASES = ("acc_boundary", "star", "star_psi", "huber_dynamic",
@@ -129,8 +111,7 @@ def background(tmp_path_factory):
     """Everything slow, started at once: both spawned worlds (`worlds`:
     {world size: future of the ranks' results}), the JAX references
     (`jax`: {case: future}) and the torchrun group (`torchrun`), with their
-    output files in `logs`. (The JAX sharded-Star subprocess starts in its
-    test, after the others' results are in: see there.)"""
+    output files in `logs`."""
     from dpgo_tpu_torch.io.g2o import write_g2o_file
     from dpgo_tpu_torch.parallel.launch import spawn
 
@@ -548,40 +529,93 @@ def test_take_nodes_states():
                 assert torch.equal(b, a[2:6]), f.name
 
 
-def test_jax_sharded_star_forced_fallbacks_deadlock(background):
+PSI_STEPS = 2
+
+
+def _jax_star_shard_decisions():
+    """The JAX package's AMM-PGO* (single process, float64) on the d = 3
+    graph at psi = phi = 1e3, PSI_STEPS jitted steps. Per step and master
+    test ("pm": the proximal candidate, "mm": the refined one): the
+    decision each shard of its ShardedDPGOStarSolver on 8 devices (one node
+    each) takes, `fobj > F - psi * sum over the shard's own nodes of the
+    squared step` (dpgo_tpu/solvers/star.py:164-176, :179, :194, the sum
+    inside shard_map), and the decision on the step summed over every
+    node. The candidates and their global objectives are the two
+    `global_f_fn` calls iterate_star makes at its top level (those inside
+    the fallback branches are traced under lax.cond, another trace)."""
+    import jax
+
+    from dpgo_tpu.driver import DPGOStarSolver, communicate_star
+    from dpgo_tpu.solvers import star as star_mod
+    from dpgo_tpu.solvers.mm import MMOptions
+
+    psi = 1e3
+    s = DPGOStarSolver(_jax_graph(3), num_nodes=NUM_NODES,
+                       opts=MMOptions(psi=psi, phi=psi), dtype=jnp.float64)
+
+    @jax.jit
+    def step(st, k):
+        top = []
+
+        def global_f(t, R):
+            f = s._global_f(t, R)
+            if f._trace is st.F._trace:
+                top.append((t, R, f))
+            return f
+
+        st2 = star_mod.iterate_star(s.probs, st, s.opts, global_f, k)
+        st2 = st2._replace(Z=communicate_star(st2.Z, s.halo_owner,
+                                              s.halo_lpose, s.halo_dc))
+        return star_mod.update_star(s.probs, st2, s.opts, first=False), top
+
+    st = s.initialize()
+    out = []
+    for k in range(PSI_STEPS):
+        nxt, top = step(st, jnp.asarray(k, jnp.int32))
+        assert len(top) == 2, len(top)
+        Zt, ZR, F = np.asarray(st.Z.t), np.asarray(st.Z.R), float(st.F)
+        rec = {}
+        for name, (t, R, f) in zip(("pm", "mm"), top):
+            sq = (np.sum((np.asarray(t) - Zt) ** 2, axis=(1, 2))
+                  + np.sum((np.asarray(R) - ZR) ** 2, axis=(1, 2, 3)))
+            rec[name] = (float(f) > F - psi * sq,
+                         bool(float(f) > F - psi * sq.sum()))
+        out.append(rec)
+        st = nxt
+    return out
+
+
+def test_jax_sharded_star_forced_fallbacks_deadlock():
     """The reference's sharded AMM-PGO* sums the psi-test's squared step
     over the local shard only (dpgo_tpu/solvers/star.py:164-176 inside
-    shard_map), so at psi = phi = 1e3 the shards of this graph take
-    different master fallbacks in the second step, and the ones inside the
-    fallback's psum wait for the others: XLA reports the stuck all-reduce
-    and ends the process (its collective timeouts shortened here). The
-    port sums the squared step over all ranks
-    (test_sharded_star_matches_jax_and_single).
+    shard_map), so at psi = phi = 1e3 the 8 shards of this graph take
+    different decisions in the proximal test of the second step: the
+    shards whose fallback fires enter its psum and wait for the others,
+    and the reference deadlocks there. Pinned from the JAX package's own
+    quantities (`_jax_star_shard_decisions`), not by running the deadlock:
+    in step 1 every shard takes both tests' decision; in step 2 the
+    proximal test splits the shards, and the refined test does not. The
+    port sums the squared step over all ranks, so its ranks take the
+    decision on the whole sum (test_sharded_star_matches_jax_and_single):
+    the port's single-process solver fires the proximal fallback in both
+    steps, as the whole sums say."""
+    from dpgo_tpu_torch.driver import DPGOStarSolver
+    from dpgo_tpu_torch.solvers.mm import MMOptions
 
-    XLA's CPU collectives sometimes pair the mismatched all-reduces when the
-    host is crowded (six copies of the script run at once: one in six
-    finished step 1), so the subprocess starts here, after the spawned
-    worlds and the JAX references have finished."""
-    logs = background.logs
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
-               "--xla_cpu_collective_call_warn_stuck_timeout_seconds=1 "
-               "--xla_cpu_collective_call_terminate_timeout_seconds=3")
-    for f in list(background.worlds.values()) + list(background.jax.values()):
-        f.exception(timeout=360)
-    with open(logs / "out", "w") as out, open(logs / "err", "w") as err:
-        proc = subprocess.Popen([sys.executable, "-c", JAX_STAR_SCRIPT],
-                                env=env, cwd=REPO, stdout=out, stderr=err)
-    try:
-        proc.wait(timeout=240)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    out, err = (logs / "out").read_text(), (logs / "err").read_text()
-    assert proc.returncode != 0, out
-    assert "step 0 done" in out and "step 1 done" not in out, out
-    assert "may be stuck" in err, err[-2000:]
+    dec = _jax_star_shard_decisions()
+    for name in ("pm", "mm"):
+        shards, whole = dec[0][name]
+        assert shards.all() and whole, (name, shards)
+    shards, whole = dec[1]["pm"]
+    assert shards.any() and not shards.all() and whole, shards
+    shards, whole = dec[1]["mm"]
+    assert shards.all() and whole, shards
+
+    s = DPGOStarSolver(_graphs()["d3"], num_nodes=NUM_NODES,
+                       opts=MMOptions(psi=1e3, phi=1e3), device="cpu")
+    s.run_steps(s.initialize(), 0, PSI_STEPS)
+    assert s.fallbacks["pm"] == sum(d["pm"][1] for d in dec) == PSI_STEPS
+    assert s.fallbacks["mm"] == sum(d["mm"][1] for d in dec)
 
 
 def test_kernel_build_runs_once_under_several_ranks(tmp_path):

@@ -172,3 +172,24 @@ def test_graph_key_sees_the_halo_strategy(world):
     for out in world:
         keys = out["graph_key"]
         assert keys == {"same": True, "other": False, "recaptured": True}
+
+
+def test_nccl_groups_run_without_graph_mixing(monkeypatch):
+    """parallel/launch.py makes NCCL groups with
+    NCCL_GRAPH_MIXING_SUPPORT=0 (with NCCL's default a collective inside a
+    conditional body fails its capture above world size 1), where the
+    environment names no value; a value it names is kept, and another
+    backend's group is left as it is."""
+    import os
+
+    from dpgo_tpu_torch.parallel import launch
+
+    key = "NCCL_GRAPH_MIXING_SUPPORT"
+    monkeypatch.delenv(key, raising=False)
+    launch.nccl_environment("gloo")
+    assert key not in os.environ
+    launch.nccl_environment("nccl")
+    assert os.environ[key] == "0"
+    monkeypatch.setenv(key, "1")
+    launch.nccl_environment("nccl")
+    assert os.environ[key] == "1"

@@ -1,7 +1,7 @@
 """The split polish on the graph route's code, on the CPU with gloo in
-float64 (the graph route itself runs over NCCL on a card: the TNT captured
-whole, its halo exchanges and all_reduces inside the WHILE bodies; gloo
-keeps the host-read route there).
+float64 (the graph route itself runs over NCCL on a card at every world
+size: the TNT captured whole, its halo exchanges and all_reduces inside
+the WHILE bodies; gloo keeps the host-read route there).
 
 One process group of 2 ranks and one of 4 (one spawn each) run
 tests/torch_spmd_ranks.py::polish_trace_cases on the 64-pose graph with 8
@@ -130,17 +130,17 @@ def test_split_polish_trace_route_matches_single(world, name):
             <= c["cg_iterations"] + 2 * c["outer"] + 8
 
 
-def test_split_polish_takes_the_host_route_above_world_size_one(world):
-    """Over NCCL the split polish is captured at world size 1 only
-    (`_bodies_capture_collectives`: at world size 4 on the card an NCCL
-    collective inside a conditional body fails the capture): at 2 and 4
-    ranks with the graph route asked for, it runs on the host-read route.
-    AMM-PGO*, whose master all_reduces sit in IF bodies, likewise keeps
-    the host-read route there; AMM-PGO# (collectives at the step's top
-    level) does not."""
-    from dpgo_tpu_torch.parallel.spmd import (ShardedDPGOSolver,
-                                              ShardedDPGOStarSolver)
+def test_split_polish_takes_the_graph_route_at_every_world_size(world):
+    """Over NCCL the split polish and AMM-PGO* take the graph route at
+    every world size, their collectives inside conditional bodies: NCCL
+    captures them there above world size 1 without its graph-mixing
+    support, which parallel/launch.py turns off for NCCL groups (unless
+    the environment names a value). At 2 and 4 ranks with the graph route
+    asked for, every case's split polish runs on it."""
+    from dpgo_tpu_torch.parallel import launch, spmd
     for out in world:
-        assert out["world_route"] == "host"
-    assert ShardedDPGOStarSolver.COLLECTIVES_IN_BODIES
-    assert not ShardedDPGOSolver.COLLECTIVES_IN_BODIES
+        for name in ranks.POLISH_CASES:
+            assert out[name]["trace"]["polish_counts"]["route"] == "graph"
+    assert launch.NCCL_ENV == {"NCCL_GRAPH_MIXING_SUPPORT": "0"}
+    assert not hasattr(spmd.ShardedDPGOStarSolver,
+                       "_bodies_capture_collectives")

@@ -585,11 +585,9 @@ def trace_run_once(device, fn):
                                       pool_bytes=0, replay_s=lambda: 0.0)
 
 
-def _polish_route(name, graphs, device, trace: bool,
-                  bodies: bool = True) -> dict:
+def _polish_route(name, graphs, device, trace: bool) -> dict:
     """drive() of a polish case on the host-read route, or (`trace`) on the
-    graph route's code (`_graph_route` and `_bodies_capture_collectives`
-    forced, since on the card the capture is taken at world size 1 only;
+    graph route's code (`_graph_route` forced, as NCCL on a card has it;
     graph_nodes.run_once on the trace route): 2f, history, stats, rows and
     the host flag reads."""
     from dpgo_tpu_torch.ops import graph_nodes
@@ -602,8 +600,6 @@ def _polish_route(name, graphs, device, trace: bool,
     if trace:
         graph_nodes.run_once = trace_run_once
         solver._graph_route = lambda: True
-        if bodies:
-            solver._bodies_capture_collectives = lambda: True
     try:
         res = drive(solver, c)
     finally:
@@ -617,17 +613,11 @@ def polish_trace_cases(rank: int, world_size: int, device,
                        graphs: dict) -> dict:
     """Per case of POLISH_CASES on this rank: the split polish on the
     host-read route and on the graph route's code (`_polish_route`), from
-    one start. Returns {case: {"host": ..., "trace": ...}}, and under
-    "world_route" the route the default case takes where the graph route
-    is asked for but the world's collectives cannot be captured in
-    conditional bodies (`_bodies_capture_collectives` as on the card)."""
+    one start. Returns {case: {"host": ..., "trace": ...}}."""
     torch.set_num_threads(1)
-    out = {name: {"host": _polish_route(name, graphs, device, False),
-                  "trace": _polish_route(name, graphs, device, True)}
-           for name in POLISH_CASES}
-    out["world_route"] = _polish_route("polish", graphs, device, True,
-                                       bodies=False)["polish_counts"]["route"]
-    return out
+    return {name: {"host": _polish_route(name, graphs, device, False),
+                   "trace": _polish_route(name, graphs, device, True)}
+            for name in POLISH_CASES}
 
 
 def nccl_polish_checks(rank: int, world_size: int, device,
