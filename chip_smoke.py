@@ -35,12 +35,20 @@ seconds, and the end the whole run's.
    chordal start of rim; host syncs and master fallbacks per step, final
    2f beside rim's. K1 and K2.
 5. mm_dchordal: rim_synth through MM-PGO (accelerated=False) started from
-   initialize(dist_init=True), the CLI's default DChordal start. DChordal
-   is timed with the kernels and with their plain versions, in float64
-   (held to each other within 1e-4 in 2f) and in float32 (the path's
-   start, held to SO(3)); its 2f is reported beside 1.5 x the centralized
-   chordal 2f + 1. MM's 2f never rises by more than 1e-5 of itself. K1
-   and K2.
+   initialize(dist_init=True), the CLI's default DChordal start, whose
+   stages run as one captured program (stage 0's TNT and CG and the four
+   Nesterov stages as WHILE nodes). DChordal's stages run from one
+   set-up per type (its parts timed) on the graph route with the kernels
+   and with their plain versions and on the host-read route: in float64
+   graph vs host-read held within 1e-8 and K2 vs plain within 1e-4 in 2f,
+   0 host syncs, conditional nodes and K2 launched in the program, SO(3)
+   within 1e-12; in float32 the solver's own start (graph route, K2,
+   SO(3) within 1e-4). After every timed run, with the other profiles,
+   the float32 stages run from a profiled set-up on the three routes
+   (busy shares of the stages and of the whole); the float32 gaps are
+   reported. Its 2f is reported
+   beside 1.5 x the centralized chordal 2f + 1. MM's 2f never rises by
+   more than 1e-5 of itself. K1 and K2.
 6. the CLI (`dpgo_tpu_torch.cli.main`) in a temporary directory: AMM-PGO*
    with the DChordal start in float32 on the manhattan graph's .g2o file
    (30 iterations; K1 at D = 2), and the float64 default on
@@ -224,6 +232,15 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# torch.profiler tears CUPTI down at the end of a session and sets it up
+# again at the next one; with CUDA graphs captured and replayed in between,
+# that re-init can kill the process with a segmentation fault under CUDA 12.
+# torch sets these two itself only for torch.compile's CUDA graphs; the port
+# captures its own. Set before torch is imported, and inherited by the
+# spawned ranks.
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
+os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
 
 ITERS = 150
 PROFILE_AT = 70  # the profiled window: steps 70-90 of a fresh run
@@ -755,34 +772,95 @@ def profile_path(name, solver, init, card, at=PROFILE_AT,
     return prof
 
 
-def profile_dchordal(meas, dev, card):
-    """One DChordal run (kernels on) under torch.profiler: wall seconds,
-    device seconds (all CUDA activity), K2's device ms and launches, and
-    the largest kernels; printed and returned."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+DCHORDAL_LOOPS = ("dchordal.reduced_R", "dchordal.full_R",
+                  "dchordal.reduced_t", "dchordal.full_t", "tnt", "stpcg")
 
-    from dpgo_tpu_torch.chordal import distributed_chordal_init
+
+def dchordal_routes(meas, dtype, dev, card, runs, f2, profile=False):
+    """DChordal's stages from one set-up (`dchordal._setup`, timed by part)
+    in `dtype`, once per (label, kernels, graph) of `runs`: the graph route
+    (one captured program replayed once) or the host-read route, with K2
+    or its plain version. Per run: 2f of the start (`f2`), the stages'
+    seconds (graph: warm-up, capture, replay by CUDA events, pool MiB),
+    host syncs, launches and conditional nodes and the stage loops' and
+    stage 0's TNT / CG trips from the device counters, and the peak
+    allocated MiB above the set-up. With `profile`, the set-up runs under
+    torch.profiler (its device seconds and top kernels) and the first run
+    gives the busy shares: the stages' (replay device seconds over the
+    stages' wall seconds) and the whole run's (set-up device seconds plus
+    the replay's, over set-up and stages' wall). Returns {"setup": ...,
+    label: record (t, R included)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from dpgo_tpu_torch.chordal import dchordal
+    from dpgo_tpu_torch.utils import DeviceCounters
+
+    cfg = dchordal.DChordalConfig()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        distributed_chordal_init(meas, NUM_NODES, dtype=torch.float32,
-                                 device=dev)
+    if profile:
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            s = dchordal._setup(meas, NUM_NODES, cfg, dtype, dev)
+            torch.cuda.synchronize()
+    else:
+        s = dchordal._setup(meas, NUM_NODES, cfg, dtype, dev)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    kt = kernel_times(prof)
-    dev_s = sum(ms for ms, _ in kt.values()) / 1e3
-    k2 = [v for key, v in kt.items() if "polar_so3_kernel" in key]
-    top = sorted(kt.items(), key=lambda kv: -kv[1][0])[:6]
-    out = {"wall_s": wall, "device_s": dev_s, "busy_share": dev_s / wall,
-           "k2_ms": sum(ms for ms, _ in k2), "k2_launches": sum(n for _, n
-                                                                in k2),
-           "top": [[key[:80], ms] for key, (ms, _) in top]}
-    print(f"DChordal profile [{card}]: wall {wall:.2f} s (profiled), device "
-          f"{dev_s:.3f} s (busy share {dev_s / wall:.3f}); K2 "
-          f"{out['k2_ms']:.3f} ms over {out['k2_launches']} launches; top: "
-          + "; ".join(f"{n} {ms:.1f} ms" for n, ms in out["top"]))
+    name = str(dtype).removeprefix("torch.")
+    out = {"setup": dict(s.seconds, total=time.perf_counter() - t0)}
+    print(f"mm_dchordal: DChordal {name} set-up [{card}] "
+          f"{out['setup']['total']:.2f} s: problem builds "
+          f"{s.seconds['problems']:.2f}, per-node seeds "
+          f"{s.seconds['seeds']:.2f}, rotation system and split inverse "
+          f"{s.seconds['rotation_system']:.2f}, copies "
+          f"{s.seconds['copies']:.3f}")
+    if profile:
+        kt = kernel_times(prof)
+        top = sorted(kt.items(), key=lambda kv: -kv[1][0])[:4]
+        out["setup"].update(device_s=sum(ms for ms, _ in kt.values()) / 1e3,
+                            top=[[k[:80], ms] for k, (ms, _) in top])
+    for label, kernels, graph in runs:
+        reset_counts()
+        p0 = peak_start(dev)
+        stats = {}
+        t, R = dchordal._run(s, kernels, graph, stats)
+        rec = dict(stats, t=t, R=R, f2=f2(t, R),
+                   launches=kernel_counts(),
+                   trips={n: [DeviceCounters.read(n + ".entries"),
+                              DeviceCounters.read(n + ".trips")]
+                          for n in DCHORDAL_LOOPS},
+                   peak_mib=peak_read(dev, p0)["above"] / 2**20)
+        out[label] = rec
+        cap = (f"warm-up {rec['warmup_s']:.2f} s, capture "
+               f"{rec['capture_s']:.2f} s, replay {rec['replay_s']:.3f} s, "
+               f"pool {rec['pool_mib']:.1f} MiB, " if graph else "")
+        print(f"mm_dchordal: DChordal {name} stages, {stats['route']} "
+              f"route, {'K2' if kernels else 'plain'} [{card}]: "
+              f"{rec['stages_s']:.2f} s ({cap}peak above set-up "
+              f"{rec['peak_mib']:.1f} MiB); 2f {rec['f2']:.8f}; host syncs "
+              f"{rec['host_syncs']}; launches {rec['launches']}; "
+              f"loops [entries, trips] {rec['trips']}")
+    if profile:
+        first = out[runs[0][0]]
+        setup = out["setup"]
+        whole_s = setup["total"] + first["stages_s"]
+        dev_s = setup["device_s"] + first["replay_s"]
+        out["profile"] = {
+            "route": first["route"], "whole_s": whole_s,
+            "setup_s": setup["total"], "setup_device_s": setup["device_s"],
+            "stages_s": first["stages_s"], "replay_s": first["replay_s"],
+            "stages_busy_share": first["replay_s"] / first["stages_s"],
+            "busy_share": dev_s / whole_s, "setup_top": setup["top"]}
+        pr = out["profile"]
+        print(f"DChordal profile, {pr['route']} route [{card}]: whole "
+              f"{whole_s:.2f} s, device {dev_s:.3f} s (busy share "
+              f"{pr['busy_share']:.4f}); set-up {setup['total']:.2f} s, "
+              f"device {setup['device_s']:.3f} s (profiled); stages "
+              f"{first['stages_s']:.2f} s, replay {first['replay_s']:.3f} s "
+              "(CUDA events; busy share of the stages "
+              f"{pr['stages_busy_share']:.4f}); set-up's top: "
+              + "; ".join(f"{n} {ms:.1f} ms" for n, ms in setup["top"]))
     return out
 
 
@@ -2763,7 +2841,10 @@ def _same_as_one_strategy(label, runs, job, hold):
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
+    faulthandler.enable()  # a fatal signal prints every thread's stack
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
               file=sys.stderr)
@@ -2774,7 +2855,7 @@ def main() -> int:
 
     import dpgo_tpu_torch  # noqa: F401  (sets true-f32 matmuls)
     from dpgo_tpu_torch import cli
-    from dpgo_tpu_torch.chordal import distributed_chordal_init
+    from dpgo_tpu_torch.chordal import DChordalConfig
     from dpgo_tpu_torch.driver import DPGOSolver, DPGOStarSolver
     from dpgo_tpu_torch.io.g2o import read_g2o_file, write_g2o_file
     from dpgo_tpu_torch.losses import Loss, loss_weight
@@ -2962,9 +3043,10 @@ def main() -> int:
 
     # Path 5: MM-PGO on rim_synth from the CLI's default start, DChordal
     # (K2 in its stages 0 and 2 and in the proximal steps, K1 and K2 in the
-    # refinement). First DChordal in float64 (the CLI's default type) with
-    # K2 and with its plain version, held to each other; these comparison
-    # runs are not counted.
+    # refinement). First DChordal's stages in float64 (the CLI's default
+    # type) from one set-up on the graph route with K2 and with its plain
+    # version, and on the host-read route with K2, held to each other;
+    # these comparison runs are not counted.
     solver, _ = make_solver(rim, f"mm_dchordal: {DATASET}, MM-PGO from "
                             "DChordal", init=rim_init,
                             opts=MMOptions(accelerated=False))
@@ -2976,35 +3058,62 @@ def main() -> int:
                                    device=dev)
         return 2.0 * float(evaluate_f(edges64, f(t), f(R)))
 
-    def dchordal(dtype, kernels):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        t, R = distributed_chordal_init(rim, NUM_NODES, dtype=dtype,
-                                        device=dev, kernels=kernels)
-        torch.cuda.synchronize()
-        return t, R, time.perf_counter() - t0
-
     def off_so3(R):
         R = np.asarray(R, np.float64)
         return float(np.abs(np.einsum("nki,nkj->nij", R, R)
                             - np.eye(3)).max())
 
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
     f_cent = f2(*rim_init)
-    t64, R64, dc64_s = dchordal(torch.float64, True)
-    t64p, R64p, dc64p_s = dchordal(torch.float64, False)
-    f_64, f_64p = f2(t64, R64), f2(t64p, R64p)
-    rel64 = abs(f_64 - f_64p) / abs(f_64p)
-    print(f"mm_dchordal: DChordal float64 [{card}] {dc64_s:.2f} s with K2, "
-          f"{dc64p_s:.2f} s plain; 2f {f_64:.6f} (plain {f_64p:.6f}, "
-          f"relative difference {rel64:.3e}), {f_64 / f_cent:.4f} x the "
+    routes = (("graph", True, True), ("graph_plain", False, True),
+              ("host", True, False))
+    r64 = dchordal_routes(rim, torch.float64, dev, card, routes, f2)
+    g64, p64, h64 = r64["graph"], r64["graph_plain"], r64["host"]
+    f_64, f_64p = g64["f2"], p64["f2"]
+    rel64, rel64_host = rel(f_64, f_64p), rel(f_64, h64["f2"])
+    print(f"mm_dchordal: DChordal float64 [{card}] graph route 2f "
+          f"{f_64:.8f}, host-read route {h64['f2']:.8f} (relative "
+          f"difference {rel64_host:.3e}), plain {f_64p:.8f} (relative "
+          f"difference {rel64:.3e}); stages {g64['stages_s']:.2f} s graph "
+          f"(replay {g64['replay_s']:.3f} s) vs {h64['stages_s']:.2f} s "
+          f"host-read; host syncs {g64['host_syncs']} vs "
+          f"{h64['host_syncs']}; K2 f64 launches "
+          f"{g64['launches']['polar_so3_f64']} vs "
+          f"{h64['launches']['polar_so3_f64']}; conditional nodes "
+          f"{g64['launches']['graph_cond']}; {f_64 / f_cent:.4f} x the "
           f"centralized chordal 2f {f_cent:.6f}; max |R^T R - I| "
-          f"{off_so3(R64):.3e}")
+          f"{off_so3(g64['R']):.3e}")
+    check(rel64_host <= 1e-8, "mm_dchordal: float64 DChordal graph and "
+          f"host-read routes disagree in 2f by {rel64_host} > 1e-8")
     check(rel64 <= 1e-4, f"mm_dchordal: float64 DChordal with K2 and plain "
           f"disagree in 2f by {rel64} > 1e-4")
-    check(off_so3(R64) <= 1e-12, "mm_dchordal: float64 DChordal rotation "
-          "off SO(3)")
+    check(g64["host_syncs"] == 0 and p64["host_syncs"] == 0,
+          "mm_dchordal: the graph route read a flag on the host")
+    check(h64["host_syncs"] > 0, "mm_dchordal: the host-read route read "
+          "no flag")
+    check(g64["launches"]["graph_cond"] > 0
+          and p64["launches"]["graph_cond"] > 0,
+          "mm_dchordal: the graph route launched no conditional node")
+    check(g64["launches"]["polar_so3_f64"] > 0, "mm_dchordal: the float64 "
+          f"program did not launch K2: {g64['launches']}")
+    check(p64["launches"]["polar_so3_f64"] == 0
+          and p64["launches"]["polar_so3"] == 0,
+          "mm_dchordal: the plain DChordal launched K2")
+    dcfg = DChordalConfig()
+    stage_trips = (dcfg.iters_reduced_R, dcfg.iters_full_R,
+                   dcfg.iters_reduced_t, dcfg.iters_full_t)
+    for r in (g64, p64, h64):
+        check(all(r["trips"][n] == [1, t]
+                  for n, t in zip(DCHORDAL_LOOPS, stage_trips)),
+              f"mm_dchordal: DChordal's stage loops ran {r['trips']}")
+    check(off_so3(g64["R"]) <= 1e-12, "mm_dchordal: float64 DChordal "
+          "rotation off SO(3)")
 
-    # The path: the solver's own (float32) DChordal through the front door.
+    # The path: the solver's own (float32) DChordal through the front door
+    # (the graph route), whose launches the path counts. Its float32 stages
+    # on the three routes run with the profiles, after every timed run.
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3012,22 +3121,24 @@ def main() -> int:
     torch.cuda.synchronize()
     dc_s = time.perf_counter() - t0
     dc_launches = kernel_counts()
+    dc_stats = dict(solver.dchordal_stats)
     t_dc, R_dc = (x.double().cpu().numpy() for x in solver.gather_global(st))
     del st
-    t_pl, R_pl, dc_plain_s = dchordal(torch.float32, False)
-    check(kernel_counts() == dc_launches, "mm_dchordal: the plain DChordal "
-          "launched a kernel")
+    check(dc_stats["route"] == "graph" and dc_stats["host_syncs"] == 0,
+          f"mm_dchordal: initialize(dist_init=True) took the {dc_stats}")
     check(dc_launches["polar_so3"] > 0, "mm_dchordal: DChordal did not "
           f"launch K2: {dc_launches}")
-    f_dc, f_pl = f2(t_dc, R_dc), f2(t_pl, R_pl)
-    dc_rel = abs(f_dc - f_pl) / abs(f_pl)
+    check(dc_launches["graph_cond"] > 0, "mm_dchordal: DChordal launched "
+          f"no conditional node: {dc_launches}")
+    f_dc = f2(t_dc, R_dc)
     orth = off_so3(R_dc)
-    print(f"mm_dchordal: DChordal float32 [{card}] {dc_s:.2f} s with K2 "
-          f"(initialize(dist_init=True), launches {dc_launches}), "
-          f"{dc_plain_s:.2f} s plain; 2f {f_dc:.6f} (plain {f_pl:.6f}, "
-          f"relative difference {dc_rel:.3e}), {f_dc / f_cent:.4f} x the "
-          f"centralized chordal 2f (plain {f_pl / f_cent:.4f}); max "
-          f"|R^T R - I| {orth:.3e}")
+    print(f"mm_dchordal: DChordal float32 [{card}] {dc_s:.2f} s through "
+          f"initialize(dist_init=True) ({dc_stats['route']} route: set-up "
+          f"{sum(dc_stats['setup_s'].values()):.2f} s, stages "
+          f"{dc_stats['stages_s']:.2f} s, replay {dc_stats['replay_s']:.3f}"
+          f" s; launches {dc_launches}); 2f {f_dc:.6f}, "
+          f"{f_dc / f_cent:.4f} x the centralized chordal 2f; "
+          f"max |R^T R - I| {orth:.3e}")
     check(orth <= 1e-4, f"mm_dchordal: DChordal rotation off SO(3) by {orth}")
     # Reported, not held: on rim the reference's DChordal (the stage
     # lengths of the reference driver) lands above 1.5 x the centralized
@@ -3041,12 +3152,15 @@ def main() -> int:
     paths["mm_dchordal"], launches["mm_dchordal"], _ = run_path(
         "mm_dchordal", solver, dc_init, ("polar_so3", "stpcg"), card,
         reset=False, monotone=True)
+
+    def brief(r):
+        return {k: v for k, v in r.items() if k not in ("t", "R")}
+
     paths["mm_dchordal"].update(
-        dchordal_s=dc_s, dchordal_plain_s=dc_plain_s, dchordal_f2=f_dc,
-        dchordal_plain_f2=f_pl, chordal_f2=f_cent,
-        dchordal_launches=dc_launches, dchordal_f64_s=dc64_s,
-        dchordal_f64_plain_s=dc64p_s, dchordal_f64_f2=f_64,
-        dchordal_f64_plain_f2=f_64p)
+        dchordal_s=dc_s, dchordal_stats=dc_stats, dchordal_f2=f_dc,
+        chordal_f2=f_cent, dchordal_launches=dc_launches,
+        dchordal_f64_f2=f_64, dchordal_f64_plain_f2=f_64p,
+        dchordal_routes={"float64": {k: brief(v) for k, v in r64.items()}})
     to_profile.append(("mm_dchordal", solver, dc_init))
 
     lap("mm_dchordal")
@@ -3149,13 +3263,33 @@ def main() -> int:
                   f"{g['graph']['capture_s']:.2f} s (+ warm-up "
                   f"{g['graph']['warmup_s']:.2f} s), capture pools "
                   f"{g['graph']['pool_bytes'] / 2**20:.1f} MiB")
+    # DChordal's float32 stages from a profiled set-up, with K2 and plain on
+    # the graph route and on the host-read route; beside them the solver's
+    # own start (mm_dchordal).
+    r32 = dchordal_routes(rim, torch.float32, dev, card, routes, f2,
+                          profile=True)
+    g32, p32, h32 = r32["graph"], r32["graph_plain"], r32["host"]
+    check(p32["launches"]["polar_so3"] == 0, "mm_dchordal: the plain "
+          "DChordal launched a kernel")
+    f_pl = p32["f2"]
+    print(f"mm_dchordal: DChordal float32 [{card}] solver's start 2f "
+          f"{f_dc:.6f}, plain {f_pl:.6f} (relative difference "
+          f"{rel(f_dc, f_pl):.3e}); graph route {g32['f2']:.6f}, host-read "
+          f"route {h32['f2']:.6f} (relative difference "
+          f"{rel(g32['f2'], h32['f2']):.3e}, not held); "
+          f"{f_dc / f_cent:.4f} x the centralized chordal 2f (plain "
+          f"{f_pl / f_cent:.4f})")
+    paths["mm_dchordal"]["dchordal_plain_f2"] = f_pl
+    paths["mm_dchordal"]["dchordal_routes"]["float32"] = {
+        k: brief(v) for k, v in r32.items()}
+    paths["mm_dchordal"]["dchordal_profile"] = r32["profile"]
+    del r32, g32, p32, h32
+
     # rim's solver stays for the sharded phase's timings, rim100k_prox's for
     # its polish of the split polish's start.
     rim_solver = to_profile[0][1]
     big_solver = next(s for n, s, _ in to_profile if n == "rim100k_prox")
     del to_profile, solver
-    paths["mm_dchordal"]["dchordal_profile"] = profile_dchordal(rim, dev,
-                                                                card)
 
     lap("profiles")
 

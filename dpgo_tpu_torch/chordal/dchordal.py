@@ -22,17 +22,25 @@ Instead of pinning node 0 as a gauge anchor, the near-null gauge modes go
 through the same eigendecomposition-split inverse as the translation
 solves; the result differs only by a global gauge transform.
 
-The stages run on `device` in `dtype`; stage 2's rotation system and its
-split inverse are built in float64 numpy on the host, as in the JAX
-package. The SO(3) projections of stages 0 and 2 and of stage 0's
-retraction go through kernel K2 on a CUDA device (`kernels=False`: the
-plain version).
+A run is a host set-up (`_setup`: the multigraph, both problem sets, the
+per-node chordal seeds, and stage 2's rotation system and split inverse,
+built in float64 numpy on the host as in the JAX package, then every copy
+to the device) followed by the stages (`_stages`), which run on `device`
+in `dtype` and read nothing from the host. On a CUDA card the stages run
+as one captured program replayed once (`graph_nodes.run_once`): stage 0's
+TNT and its CG are WHILE nodes, and each Nesterov stage is one
+`utils.fixed_loop`, the counterpart of the JAX package's `lax.fori_loop`.
+Elsewhere, or with `graph=False`, they run on the host-read route, where
+only stage 0's TNT reads its flags. The SO(3) projections of stages 0 and
+2 and of stage 0's retraction go through kernel K2 on a CUDA device
+(`kernels=False`: the plain version).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -45,7 +53,7 @@ from dpgo_tpu_torch.problem import NodeState, build_node_problems
 from dpgo_tpu_torch.sesync.init import chordal_initialization
 from dpgo_tpu_torch.solvers.mm import _make_tnt_model
 from dpgo_tpu_torch.solvers.tnt import TNTParams, tnt
-from dpgo_tpu_torch.utils import resolve_device
+from dpgo_tpu_torch.utils import HostSyncs, fixed_loop, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,17 +83,33 @@ def _intra_only_multigraph(mg: MultiGraph) -> MultiGraph:
                                e_tau=np.zeros_like(mg.e_tau))
 
 
-def _nesterov_scan(step_fn, X0: torch.Tensor, num_iters: int):
+def _sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of a 0-d tensor, as numpy's and
+    the JAX package's. The card's `torch.sqrt` is one; the CPU's goes
+    through MKL's vector library, which is up to one unit in the last
+    place off, so on the CPU numpy takes the root."""
+    if x.device.type == "cpu":
+        return torch.as_tensor(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+def _nesterov_scan(step_fn, X0: torch.Tensor, num_iters: int, name: str):
     """X_{k+1} = step_fn(Y_k) with Y = (1 + gamma) X_k - gamma X_{k-1}, a
-    fixed number of times (no host reads). The Nesterov scalars are host
-    numbers of X0's type."""
-    c = np.dtype(str(X0.dtype).removeprefix("torch.")).type
-    X, X_prev, s = X0, X0, c(1.0)
-    for _ in range(num_iters):
-        s1 = c(0.5) + c(0.5) * np.sqrt(c(4.0) * s * s + c(1.0))
-        gamma = (s - c(1.0)) / s1
-        Y = float(c(1.0) + gamma) * X - float(gamma) * X_prev
-        X, X_prev, s = step_fn(Y), X, s1
+    fixed number of times (`utils.fixed_loop`, counted as `name`). The
+    carry is (X, X_prev, s) with s a 0-d tensor of X0's type, as the JAX
+    package's `lax.fori_loop` carry; each operation of the scalar
+    recurrence is its own op, so no fused multiply-add changes its
+    rounding."""
+
+    def body(carry):
+        X, X_prev, s = carry
+        s1 = 0.5 + 0.5 * _sqrt0(4.0 * s * s + 1.0)
+        gamma = (s - 1.0) / s1
+        Y = (1.0 + gamma) * X - gamma * X_prev
+        return step_fn(Y), X, s1
+
+    s0 = torch.ones((), dtype=X0.dtype, device=X0.device)
+    X, _, _ = fixed_loop(num_iters, body, (X0, X0, s0), name=name)
     return X
 
 
@@ -140,40 +164,69 @@ def _rotation_system(mg: MultiGraph) -> np.ndarray:
     return GR
 
 
-def distributed_chordal_init(meas: Measurements, num_nodes: int,
-                             cfg: DChordalConfig = DChordalConfig(),
-                             dtype=torch.float64, device=None,
-                             kernels: bool = True):
-    """Run the 4-stage pipeline on `device` (the CUDA card unless named);
-    returns global (t [P, d], R [P, d, d]) as numpy arrays."""
-    device = resolve_device(device)
+def graph_route(graph, device: torch.device) -> bool:
+    """Whether DChordal's stages run as one captured program: `graph` as
+    asked, None for "on a CUDA card". Asking for it on another device
+    raises (a CUDA graph exists only on the card)."""
+    if graph is None:
+        return device.type == "cuda"
+    if graph and device.type != "cuda":
+        raise ValueError("DChordal's captured route runs on a CUDA card; "
+                         f"got {device}: pass graph=False or None")
+    return bool(graph)
+
+
+@dataclasses.dataclass
+class _Setup:
+    """Everything DChordal's stages read, made on the host and copied to
+    the device before they start (no host-to-device copy inside the
+    stages): the two problem sets, the halo maps, stage 0's seeds, stage
+    2's split inverse, the global row map, and the seconds by part."""
+
+    cfg: DChordalConfig
+    probs: object          # NodeProblem of the full multigraph
+    probs0: object         # NodeProblem of the intra-only multigraph
+    halo_owner: torch.Tensor
+    halo_lpose: torch.Tensor
+    R_seed: torch.Tensor   # [N, n0, d, d] per-node chordal seeds
+    GR_red: torch.Tensor   # stage 2's split inverse
+    GR_null: torch.Tensor
+    node_of: torch.Tensor
+    local_of: torch.Tensor
+    zeros_t: torch.Tensor  # [N, n0, d]
+    zeros_h: torch.Tensor  # [N, n1, d]
+    eye_h: torch.Tensor    # [N, n1, d, d]
+    S0: torch.Tensor       # [N, d, d] identities
+    u0: torch.Tensor       # [N, d] zeros
+    seconds: dict
+
+    def with_kernels(self, kernels: bool) -> "_Setup":
+        """This set-up with K2 on or off (the plain versions) in both
+        problem sets."""
+        if kernels:
+            return self
+        return dataclasses.replace(
+            self, probs=dataclasses.replace(self.probs, kernels=False),
+            probs0=dataclasses.replace(self.probs0, kernels=False))
+
+
+def _setup(meas: Measurements, num_nodes: int, cfg: DChordalConfig,
+           dtype, device: torch.device) -> _Setup:
+    """The host part of DChordal: the multigraph, both problem sets, the
+    per-node chordal seeds, stage 2's rotation system and split inverse
+    (float64 numpy), and every copy to `device` the stages read."""
+    clock = time.perf_counter
+    t0 = clock()
     part, nodes, mg = build_multigraph(meas, num_nodes)
     d, N, n0m, n1m = mg.d, mg.num_nodes, mg.n0_max, mg.n1_max
     xi = cfg.reg
-
     probs = build_node_problems(mg, xi=max(xi, 1e-12), dtype=dtype,
                                 device=device)
     probs0 = build_node_problems(_intra_only_multigraph(mg),
                                  xi=max(xi, 1e-12), dtype=dtype,
                                  device=device)
-    if not kernels:
-        probs = dataclasses.replace(probs, kernels=False)
-        probs0 = dataclasses.replace(probs0, kernels=False)
-
-    def dev(x, dt=dtype):
-        return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
-
-    halo_owner = dev(mg.halo_owner, torch.int64)
-    halo_lpose = dev(mg.halo_lpose, torch.int64)
-
-    def exchange(arr):
-        return arr[halo_owner, halo_lpose]
-
-    zeros_t = torch.zeros((N, n0m, d), dtype=dtype, device=device)
-    zeros_h = torch.zeros((N, n1m, d), dtype=dtype, device=device)
-
-    # ---------------- stage 0: per-node local solutions -------------------
-    R_loc = np.tile(np.eye(d), (N, n0m, 1, 1))
+    t1 = clock()
+    R_seed = np.tile(np.eye(d), (N, n0m, 1, 1))
     for a, g in enumerate(nodes):
         if len(g.intra) == 0:
             continue
@@ -181,26 +234,69 @@ def distributed_chordal_init(meas: Measurements, num_nodes: int,
             i=g.intra.i, j=g.intra.j, R=g.intra.R, t=g.intra.t,
             kappa=g.intra.kappa, tau=g.intra.tau, num_poses=g.n0, d=d)
         try:
-            R_loc[a, :g.n0] = chordal_initialization(sub)
+            R_seed[a, :g.n0] = chordal_initialization(sub)
         except RuntimeError:
             pass  # disconnected intra graph (singular factor): identity seed
-    R_loc = dev(R_loc)
+    t2 = clock()
+    GR_red, GR_null = _split_inverse(_rotation_system(mg), xi)
+    t3 = clock()
+
+    def dev(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    eye = torch.eye(d, dtype=dtype, device=device)
+    s = _Setup(cfg=cfg, probs=probs, probs0=probs0,
+               halo_owner=dev(mg.halo_owner, torch.int64),
+               halo_lpose=dev(mg.halo_lpose, torch.int64),
+               R_seed=dev(R_seed), GR_red=dev(GR_red), GR_null=dev(GR_null),
+               node_of=dev(part.node_of, torch.int64),
+               local_of=dev(part.local_of, torch.int64),
+               zeros_t=zeros(N, n0m, d), zeros_h=zeros(N, n1m, d),
+               eye_h=eye.expand(N, n1m, d, d), S0=eye.repeat(N, 1, 1),
+               u0=zeros(N, d), seconds={})
+    s.seconds.update(problems=t1 - t0, seeds=t2 - t1, rotation_system=t3 - t2,
+                     copies=clock() - t3)
+    return s
+
+
+def _stages(s: _Setup, syncs: HostSyncs):
+    """Stage 0's translation recovery and TNT, stages 1-4 and the gather
+    into global rows, all on the device: global (t [P, d], R [P, d, d]) as
+    device tensors. Reads nothing on the host but the TNT's and CG's flags
+    on the host route (counted in `syncs`); the stage loops are
+    `fixed_loop`s ("dchordal.reduced_R", "dchordal.full_R",
+    "dchordal.reduced_t", "dchordal.full_t")."""
+    cfg, probs, probs0 = s.cfg, s.probs, s.probs0
+    kernels = probs.kernels
+    N, n0m, d = s.zeros_t.shape
+    xi = cfg.reg
+    zeros_t, zeros_h = s.zeros_t, s.zeros_h
+    halo_owner, halo_lpose = s.halo_owner, s.halo_lpose
+
+    def exchange(arr):
+        return arr[halo_owner, halo_lpose]
+
+    # ---------------- stage 0: per-node local solutions -------------------
+    R_loc = s.R_seed
     # Pure-coupling rhs (g = 0): anchor the null response at zero.
-    t_loc = probs0.recover_translations(R_loc, zeros_t, t_anchor=zeros_t)
+    t_loc = probs0.recover_translations(R_loc, zeros_t, t_anchor=zeros_t,
+                                        syncs=syncs)
 
     if cfg.refine_stage0:
         # Per-node Riemannian refinement of the intra-only problem (the
         # reference runs full SE-Sync per node), all nodes as TNT lanes.
         params = TNTParams(max_iterations=cfg.stage0_tnt_iters,
                            max_iterations_accepted=cfg.stage0_tnt_iters)
-        eye_h = torch.eye(d, dtype=dtype, device=device).expand(
-            N, n1m, d, d)
         g, f = probs0.surrogate_g_f(NodeState(t=t_loc, R=R_loc, th=zeros_h,
-                                              Rh=eye_h))
+                                              Rh=s.eye_h))
         # Intra-only problems are all null-space (no inter edges): anchor
         # the translation solves at the start (see solve_mG00).
-        model = _make_tnt_model(probs0, g[0], g[1], f, t_anchor=t_loc)
-        t_loc, R_loc, _, _, _ = tnt(model, t_loc, R_loc, params)
+        model = _make_tnt_model(probs0, g[0], g[1], f, t_anchor=t_loc,
+                                syncs=syncs)
+        t_loc, R_loc, _, _, _ = tnt(model, t_loc, R_loc, params, syncs=syncs)
 
     # ---------------- stage 1: reduced rotation ---------------------------
     b = probs._b
@@ -228,15 +324,14 @@ def distributed_chordal_init(meas: Measurements, num_nodes: int,
         # Padded edges (kappa = 0) add nothing; denom >= xi > 0.
         return num / denomR[:, None, None]
 
-    S0 = torch.eye(d, dtype=dtype, device=device).repeat(N, 1, 1)
-    S = _nesterov_scan(stage1_step, S0, cfg.iters_reduced_R)
+    S = _nesterov_scan(stage1_step, s.S0, cfg.iters_reduced_R,
+                       "dchordal.reduced_R")
     S = project_sod(S, kernels)
     R1 = S[:, None] @ R_loc
 
     # ---------------- stage 2: full rotation ------------------------------
     # Q-storage tall systems: columns decouple; per-node dense split inverse.
-    GR_red, GR_null = _split_inverse(_rotation_system(mg), xi)
-    GR_red, GR_null = dev(GR_red), dev(GR_null)
+    GR_red, GR_null = s.GR_red, s.GR_null
 
     # Nodes without inter edges are uncoupled BCD blocks: their exact
     # solution is the stage-0 local solve, so stage 2 leaves them untouched
@@ -266,11 +361,13 @@ def distributed_chordal_init(meas: Measurements, num_nodes: int,
             1.0), max=1e15)
         return torch.where(has_inter, Rn * scale[:, None, None, None], R1)
 
-    R2 = _nesterov_scan(stage2_step, R1, cfg.iters_full_R)
+    R2 = _nesterov_scan(stage2_step, R1, cfg.iters_full_R,
+                        "dchordal.full_R")
     R2 = project_sod(R2, kernels)
 
     # ---------------- stage 3: reduced translation ------------------------
-    t_loc2 = probs0.recover_translations(R2, zeros_t, t_anchor=zeros_t)
+    t_loc2 = probs0.recover_translations(R2, zeros_t, t_anchor=zeros_t,
+                                         syncs=syncs)
     th2, Rh2 = exchange(t_loc2), exchange(R2)
     t_self, t_other = t_loc2[b, e_self], th2[b, e_slot]
     t_tail = torch.where(sel[..., None], t_self, t_other)
@@ -286,9 +383,8 @@ def distributed_chordal_init(meas: Measurements, num_nodes: int,
         num = (sum_tau + xi)[:, None] * u + (etau[..., None] * pull).sum(1)
         return num / denomT[:, None]
 
-    u = _nesterov_scan(stage3_step, torch.zeros((N, d), dtype=dtype,
-                                                device=device),
-                       cfg.iters_reduced_t)
+    u = _nesterov_scan(stage3_step, s.u0, cfg.iters_reduced_t,
+                       "dchordal.reduced_t")
     t3 = t_loc2 + u[:, None, :]
 
     # ---------------- stage 4: full translation ---------------------------
@@ -314,12 +410,62 @@ def distributed_chordal_init(meas: Measurements, num_nodes: int,
                               -ett * rr - 2.0 * ett * ts)
         g = probs._scatter(probs._fs, contrib) + b_intra - probs.xi * tcur
         # g carries -xi tcur: anchor the null response at tcur.
-        return -probs.solve_mG00(g, t_anchor=tcur)
+        return -probs.solve_mG00(g, t_anchor=tcur, syncs=syncs)
 
-    t4 = _nesterov_scan(stage4_step, t3, cfg.iters_full_t)
+    t4 = _nesterov_scan(stage4_step, t3, cfg.iters_full_t,
+                        "dchordal.full_t")
 
     # ---------------- assemble global -------------------------------------
-    node_of = dev(part.node_of, torch.int64)
-    local_of = dev(part.local_of, torch.int64)
-    return (t4[node_of, local_of].cpu().numpy(),
-            R2[node_of, local_of].cpu().numpy())
+    return t4[s.node_of, s.local_of], R2[s.node_of, s.local_of]
+
+
+def _run(s: _Setup, kernels: bool, graph: bool, stats: dict | None = None):
+    """DChordal's stages from set-up `s`, with K2 or its plain version, on
+    the graph route (one captured program replayed once,
+    `graph_nodes.run_once`: no host read) or the host-read route; then one
+    copy of the global (t, R) to the host, as numpy. `stats` gets the
+    route, the host flag reads and loop notes, the stages' seconds (to the
+    copy's end) and, on the graph route, the warm-up, capture and replay
+    seconds and the capture's pool in MiB."""
+    sk = s.with_kernels(kernels)
+    syncs = HostSyncs()
+    t0 = time.perf_counter()
+    if graph:
+        from dpgo_tpu_torch.ops import graph_nodes
+        (t, R), cap = graph_nodes.run_once(s.zeros_t.device,
+                                           lambda: _stages(sk, syncs))
+    else:
+        t, R = _stages(sk, syncs)
+    t, R = t.cpu().numpy(), R.cpu().numpy()
+    info = dict(route="graph" if graph else "host", host_syncs=syncs.count,
+                loops={k: list(v) for k, v in syncs.loops.items()},
+                stages_s=time.perf_counter() - t0)
+    if graph:
+        info.update(warmup_s=cap.warmup_s, capture_s=cap.capture_s,
+                    replay_s=cap.replay_s(),
+                    pool_mib=cap.pool_bytes / 2**20)
+    if stats is not None:
+        stats.update(info)
+    return t, R
+
+
+def distributed_chordal_init(meas: Measurements, num_nodes: int,
+                             cfg: DChordalConfig = DChordalConfig(),
+                             dtype=torch.float64, device=None,
+                             kernels: bool = True, graph=None,
+                             stats: dict | None = None):
+    """Run the 4-stage pipeline on `device` (the CUDA card unless named);
+    returns global (t [P, d], R [P, d, d]) as numpy arrays.
+
+    The host set-up (problem builds, seeds, stage 2's split inverse, the
+    copies) comes first; then the stages, on a CUDA card as one captured
+    program replayed once (`graph=None`; `graph=False`: the host-read
+    route, the CPU's only one). `stats` gets the route, host flag reads,
+    the set-up seconds by part (`setup_s`) and the stages' seconds (`_run`).
+    """
+    device = resolve_device(device)
+    graph = graph_route(graph, device)
+    s = _setup(meas, num_nodes, cfg, dtype, device)
+    if stats is not None:
+        stats["setup_s"] = dict(s.seconds)
+    return _run(s, kernels, graph, stats)

@@ -114,6 +114,8 @@ class DPGOSolver:
         self.syncs = HostSyncs()
         # Outer / CG iterations and TNT history of the last polish.
         self.polish_stats = None
+        # Route, seconds and host syncs of the last DChordal start.
+        self.dchordal_stats = None
         # (scale_w, problems) of the last update: under dynamic rescale the
         # update builds the reweighted problems once per step and the next
         # iterate runs on them.
@@ -204,12 +206,15 @@ class DPGOSolver:
     def _start(self, t, R, dist_init: bool) -> NodeState:
         """The initial node states: (t, R) as given, else centralized
         chordal (host numpy/scipy) or, with dist_init, the distributed
-        DChordal pipeline on this solver's device, type and kernel
-        setting."""
+        DChordal pipeline on this solver's device, type, kernel setting
+        and route (its stages captured whole where the step is; the run's
+        routes, seconds and syncs in `dchordal_stats`)."""
         if R is None and dist_init:
+            self.dchordal_stats = {}
             t, R = distributed_chordal_init(
                 self.meas, self.num_nodes, dtype=self.dtype,
-                device=self.device, kernels=self.probs.kernels)
+                device=self.device, kernels=self.probs.kernels,
+                graph=self._graph_route(), stats=self.dchordal_stats)
         if R is None:
             R = chordal_initialization(self.meas)
         if t is None:

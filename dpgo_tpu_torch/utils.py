@@ -1,8 +1,9 @@
 """Small shared utilities, and the step's control flow.
 
-`device_cond` and `bounded_while` are the port's counterparts of the JAX
-package's `lax.cond` and bounded `lax.while_loop`. They take one of three
-routes, set for the process by `route(...)`:
+`device_cond`, `bounded_while` and `fixed_loop` are the port's counterparts
+of the JAX package's `lax.cond`, bounded `lax.while_loop` and
+`lax.fori_loop`. They take one of three routes, set for the process by
+`route(...)`:
 
 - "host" (the default; the CPU route and the eager route on the card): the
   flag is read on the host (`HostSyncs.flag`) and Python takes one branch or
@@ -303,11 +304,47 @@ def bounded_while(max_trips: int, cond_fn, body_fn, carry,
     return carry
 
 
+def fixed_loop(num_iters: int, body_fn, carry, name: str | None = None):
+    """`carry = body_fn(carry)` exactly `num_iters` times: the counterpart
+    of `lax.fori_loop`. `name` counts the loop's entries and trips in
+    `DeviceCounters`, as `bounded_while` does.
+
+    Host and trace routes: a Python loop that reads nothing on the host;
+    warm: one trip. Capture: one WHILE node whose trip counter lives on the
+    device (the body bumps it and runs again while it is below
+    `num_iters`), so the graph holds one body whatever the trip count."""
+    mode = _Route.mode
+    leaves, rebuild = flatten(carry)
+    dev = leaves[0].device
+    if mode != "capture" or num_iters <= 0:
+        trips = max(num_iters, 0)
+        if mode == "warm":
+            trips = min(trips, 1)
+        for _ in range(trips):
+            carry = body_fn(carry)
+    else:
+        from dpgo_tpu_torch.ops import graph_nodes
+        bufs = [x.clone() for x in leaves]
+        trips = torch.zeros((), dtype=torch.int64, device=dev)
+        with graph_nodes.conditional(trips < num_iters,
+                                     graph_nodes.WHILE) as handle:
+            new, _ = flatten(body_fn(rebuild(bufs)))
+            _copy_into(bufs, new)
+            trips.add_(1)
+            graph_nodes.again(handle, trips < num_iters)
+        carry = rebuild(bufs)
+    if name is not None:
+        DeviceCounters.bump(name + ".entries", dev)
+        DeviceCounters.bump(name + ".trips", dev, trips)
+    return carry
+
+
 class DeviceCounters:
     """Named int64 counters on the device, bumped by the step itself: a
     kernel wrapper where it launches its kernel ("polar_so3",
     "polar_so3_f64", "stpcg", "stpcg_d2"), `bounded_while` per loop
-    ("seg_cg", "stpcg", "tnt": `.entries`, `.trips`), the master tests of
+    ("seg_cg", "stpcg", "tnt": `.entries`, `.trips`), `fixed_loop` per loop
+    (DChordal's "dchordal.reduced_R" and the like), the master tests of
     AMM-PGO* through `bump_tensor`. Under "trace" a bump counts only where
     the enclosing branch and trip flags hold, so the trace route counts
     what the host route takes. A counter is made at its first bump, which

@@ -1140,3 +1140,89 @@ def test_certify_lobpcg_graph_route_matches_host_route(dev):
         assert abs(glam - hlam) <= 1e-5
         assert gst["lobpcg"]["route"] == "graph" and gst["host_syncs"] == 0
         assert gst["apply_S_calls"] > 0 and hst["apply_S_calls"] > 0
+
+
+# ------------------------------- DChordal's stages as one captured program
+
+def _dchordal_run(s, kernels, graph):
+    """One run of DChordal's stages from set-up `s`: (t, R, stats, device
+    counts of K2, conditional nodes and the stage loops)."""
+    from dpgo_tpu_torch.chordal import dchordal
+    from dpgo_tpu_torch.utils import DeviceCounters
+    DeviceCounters.reset()
+    stats = {}
+    t, R = dchordal._run(s, kernels, graph, stats)
+    names = ["polar_so3", "polar_so3_f64", "graph_cond"] + [
+        f"dchordal.{n}.{k}" for n in ("reduced_R", "full_R", "reduced_t",
+                                      "full_t") for k in ("entries", "trips")]
+    return t, R, stats, {n: DeviceCounters.read(n) for n in names}
+
+
+@pytest.mark.cuda
+def test_dchordal_graph_route_matches_host_route(dev):
+    """DChordal's stages on the card as one captured program against the
+    host-read route, from one float64 set-up (grid3D_synth, 4 nodes): t
+    and R within 1e-8, 2f within 1e-8 relative; no host flag read on the
+    graph route (some on the host-read route); conditional nodes and the
+    four stage loops (one entry, their trips) counted on the device; K2
+    launches equal on both routes; with kernels=False the graph route
+    launches no K2."""
+    from dpgo_tpu_torch.chordal import dchordal
+    from dpgo_tpu_torch.chordal.dchordal import chordal_objective
+
+    meas = _grid3d()
+    cfg = dchordal.DChordalConfig()
+    s = dchordal._setup(meas, 4, cfg, torch.float64, dev)
+    gt, gR, gs, gc = _dchordal_run(s, True, True)
+    ht, hR, hs, hc = _dchordal_run(s, True, False)
+    pt, pR, ps, pc = _dchordal_run(s, False, True)
+    assert (gs["route"], hs["route"], ps["route"]) == ("graph", "host",
+                                                       "graph")
+    np.testing.assert_allclose(gt, ht, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(gR, hR, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(chordal_objective(meas, gt, gR),
+                               chordal_objective(meas, ht, hR), rtol=1e-8)
+    assert gs["host_syncs"] == 0 and ps["host_syncs"] == 0
+    assert hs["host_syncs"] > 0
+    assert gc["graph_cond"] > 0 and pc["graph_cond"] > 0
+    assert hc["graph_cond"] == 0
+    for c in (gc, hc, pc):
+        assert [c["dchordal.reduced_R.entries"], c["dchordal.reduced_R.trips"],
+                c["dchordal.full_R.trips"], c["dchordal.reduced_t.trips"],
+                c["dchordal.full_t.trips"]] == [
+            1, cfg.iters_reduced_R, cfg.iters_full_R, cfg.iters_reduced_t,
+            cfg.iters_full_t]
+    assert gc["polar_so3_f64"] == hc["polar_so3_f64"] > 0
+    assert pc["polar_so3_f64"] == pc["polar_so3"] == 0
+    assert gs["capture_s"] > 0 and gs["replay_s"] > 0
+
+
+@pytest.mark.cuda
+def test_dchordal_takes_the_graph_route_by_default(dev):
+    """distributed_chordal_init and DPGOSolver.initialize(dist_init=True)
+    take the graph route on the card (grid3D_synth, 4 nodes, float32), with
+    no host flag read."""
+    from dpgo_tpu_torch.chordal import distributed_chordal_init
+    from dpgo_tpu_torch.driver import DPGOSolver
+
+    meas = _grid3d()
+    stats = {}
+    distributed_chordal_init(meas, 4, dtype=torch.float32, device=dev,
+                             stats=stats)
+    assert stats["route"] == "graph" and stats["host_syncs"] == 0
+    s = DPGOSolver(meas, num_nodes=4, dtype=torch.float32, device=dev)
+    s.initialize(dist_init=True)
+    assert s.dchordal_stats["route"] == "graph"
+    assert s.dchordal_stats["host_syncs"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sqrt_on_the_card_is_correctly_rounded(dev, rng, dtype):
+    """torch.sqrt on the card equals numpy's correctly rounded root on
+    10^6 values, so DChordal's Nesterov scalars on the device keep the
+    bits of the host's numpy scalars."""
+    x = rng.uniform(1.0, 1e6, 1_000_000).astype(
+        str(dtype).removeprefix("torch."))
+    got = torch.sqrt(torch.as_tensor(x, device=dev)).cpu().numpy()
+    np.testing.assert_array_equal(got, np.sqrt(x))

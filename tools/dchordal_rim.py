@@ -2,7 +2,7 @@
 """DChordal on rim_synth on one CUDA card: the quality of the start against
 the centralized chordal initialization, by working type and stage length.
 
-    python3 tools/dchordal_rim.py [--mm-spread N]
+    python3 tools/dchordal_rim.py [--routes | --mm-spread N]
 
 Runs dpgo_tpu_torch's distributed_chordal_init on artifacts/rim_synth.g2o
 with 16 nodes in float32 and float64, each with kernel K2 and with its plain
@@ -10,6 +10,12 @@ version, at the reference's stage lengths and at 4x them (float64), and
 prints per run: 2f of the start (exact oracle, float64), its ratio to the
 centralized chordal 2f, the largest |R^T R - I| and the wall seconds,
 beside the card's name and power limit.
+
+With --routes it instead runs chip_smoke.py's DChordal comparison of the
+mm_dchordal path: one set-up per type (float64, then float32 profiled),
+the stages on the graph route (one captured program) with K2 and plain
+and on the host-read route, each printed with its seconds, host syncs,
+launches and loop trips.
 
 With --mm-spread N it instead repeats N times the mm_dchordal path of
 chip_smoke.py (a float32 MM-PGO solver, its own float32 DChordal start,
@@ -59,6 +65,14 @@ def main() -> int:
     R0 = chordal_initialization(meas)
     f_c = f2(recover_translations_global(meas, R0), R0)
     print(f"centralized chordal 2f {f_c:.6f}")
+    if "--routes" in sys.argv:
+        import chip_smoke
+        runs = (("graph", True, True), ("graph_plain", False, True),
+                ("host", True, False))
+        for dtype in (torch.float64, torch.float32):
+            chip_smoke.dchordal_routes(meas, dtype, dev, card, runs, f2,
+                                       profile=dtype == torch.float32)
+        return 0
     if "--mm-spread" in sys.argv:
         reps = int(sys.argv[sys.argv.index("--mm-spread") + 1])
         mm_spread(meas, dev, card, reps)
