@@ -2938,11 +2938,6 @@ def main() -> int:
     paths["rim"], launches["rim"], st = run_path(
         "rim", solver, init, ("polar_so3", "stpcg"), card)
     eager_route("rim", solver, init, card, paths["rim"])
-    flops = solver.step_flops(solver.initialize(*init))
-    print(f"rim: DPGOSolver.step_flops at the start {flops / 1e9:.3f} GFLOP "
-          "per step (matrix products and the kernels' counts)")
-    check(flops > 0, "rim: step_flops is not positive")
-    paths["rim"]["step_flops"] = flops
     # The estimate the polish path starts from.
     rim_est = tuple(x.double().cpu().numpy()
                     for x in solver.gather_global(st))

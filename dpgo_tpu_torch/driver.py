@@ -41,8 +41,8 @@ from dpgo_tpu_torch.solvers import polish as polish_mod
 from dpgo_tpu_torch.solvers import star as star_mod
 from dpgo_tpu_torch.solvers.mm import MMOptions, MMState, init_state
 from dpgo_tpu_torch.solvers.tnt import tnt_one
-from dpgo_tpu_torch.utils import (DeviceCounters, HostSyncs, _copy_into,
-                                  flatten, resolve_device, route)
+from dpgo_tpu_torch.utils import (HostSyncs, Spans, _copy_into, flatten,
+                                  open_device, resolve_device, span, sync)
 
 
 def communicate(st: MMState, halo_owner, halo_lpose, halo_dc=None) -> MMState:
@@ -79,29 +79,37 @@ class DPGOSolver:
         self.opts = opts or MMOptions()
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.part, self.nodes, self.mg = build_multigraph(meas, num_nodes)
-        precon_cond = self.opts.precon_cond
-        if precon_cond is None:
-            precon_cond = 1e6 if dtype == torch.float64 else 1e5
-        self._build_kw = dict(
-            xi=self.opts.regularizer, loss=loss, loss_reg=loss_reg,
-            precon_cond=precon_cond, dense_limit=dense_limit,
-            segment_limit=segment_limit, seg_size=seg_size, dtype=dtype,
-            device=self.device)
-        self.probs = self._build_problems()
-        self.edges = EdgeData.from_measurements(
-            meas, node_of=self.part.node_of, dtype=dtype, device=self.device)
+        with span("build", setup=True):
+            with span("build.multigraph", setup=True):
+                self.part, self.nodes, self.mg = build_multigraph(
+                    meas, num_nodes)
+            with span("device.open", setup=True):
+                open_device(self.device)
+            precon_cond = self.opts.precon_cond
+            if precon_cond is None:
+                precon_cond = 1e6 if dtype == torch.float64 else 1e5
+            self._build_kw = dict(
+                xi=self.opts.regularizer, loss=loss, loss_reg=loss_reg,
+                precon_cond=precon_cond, dense_limit=dense_limit,
+                segment_limit=segment_limit, seg_size=seg_size, dtype=dtype,
+                device=self.device)
+            self.probs = self._build_problems()
+            with span("build.upload", setup=True):
+                self.edges = EdgeData.from_measurements(
+                    meas, node_of=self.part.node_of, dtype=dtype,
+                    device=self.device)
+
+                def ix(x):
+                    return torch.as_tensor(np.asarray(x, np.int64),
+                                           device=self.device)
+
+                self.halo_owner = ix(self.mg.halo_owner)
+                self.halo_lpose = ix(self.mg.halo_lpose)
+                self.node_of = ix(self.part.node_of)
+                self.local_of = ix(self.part.local_of)
+                sync(self.device)
         self.loss = loss
         self.loss_reg = loss_reg
-
-        def ix(x):
-            return torch.as_tensor(np.asarray(x, np.int64),
-                                   device=self.device)
-
-        self.halo_owner = ix(self.mg.halo_owner)
-        self.halo_lpose = ix(self.mg.halo_lpose)
-        self.node_of = ix(self.part.node_of)
-        self.local_of = ix(self.part.local_of)
         # Local gauge centering: store each node's translations relative to
         # its own block centroid (fixed at first initialize). Every cost is
         # difference-based, so only f32 cancellation error changes: it drops
@@ -197,30 +205,36 @@ class DPGOSolver:
     def gather_global(self, st: MMState):
         """Assemble the global (t, R) from per-node own blocks (undoing the
         local gauge offsets)."""
-        t = st.Z.t[self.node_of, self.local_of]
-        if self._c is not None:
-            t = t + self._c_dev[self.node_of]
-        R = st.Z.R[self.node_of, self.local_of]
+        with span("gather", self.device):
+            t = st.Z.t[self.node_of, self.local_of]
+            if self._c is not None:
+                t = t + self._c_dev[self.node_of]
+            R = st.Z.R[self.node_of, self.local_of]
         return t, R
 
-    def _start(self, t, R, dist_init: bool) -> NodeState:
-        """The initial node states: (t, R) as given, else centralized
-        chordal (host numpy/scipy) or, with dist_init, the distributed
-        DChordal pipeline on this solver's device, type, kernel setting
-        and route (its stages captured whole where the step is; the run's
-        routes, seconds and syncs in `dchordal_stats`)."""
-        if R is None and dist_init:
-            self.dchordal_stats = {}
-            t, R = distributed_chordal_init(
-                self.meas, self.num_nodes, dtype=self.dtype,
-                device=self.device, kernels=self.probs.kernels,
-                graph=self._graph_route(), stats=self.dchordal_stats)
-        if R is None:
-            R = chordal_initialization(self.meas)
-        if t is None:
-            t = recover_translations_global(self.meas, R)
-        # Center the translation gauge (pure gauge freedom; keeps |t| small,
-        # which matters in f32).
+    def _start(self, t, R, dist_init: bool) -> tuple:
+        """The global start (t, R): as given, else centralized chordal
+        (host numpy/scipy) or, with dist_init, the distributed DChordal
+        pipeline on this solver's device, type, kernel setting and route
+        (its stages captured whole where the step is; the run's routes,
+        seconds and syncs in `dchordal_stats`)."""
+        with span("init.chordal", setup=True):
+            if R is None and dist_init:
+                self.dchordal_stats = {}
+                t, R = distributed_chordal_init(
+                    self.meas, self.num_nodes, dtype=self.dtype,
+                    device=self.device, kernels=self.probs.kernels,
+                    graph=self._graph_route(), stats=self.dchordal_stats)
+            if R is None:
+                R = chordal_initialization(self.meas)
+            if t is None:
+                t = recover_translations_global(self.meas, R)
+        return t, R
+
+    def _pack_start(self, t, R) -> NodeState:
+        """The initial node states from the global start, its translation
+        gauge centered (pure gauge freedom; keeps |t| small, which matters
+        in f32)."""
         t = t - np.asarray(t).mean(axis=0, keepdims=True)
         self._set_gauge(t)
         return self.pack_global(t, R)
@@ -230,11 +244,16 @@ class DPGOSolver:
                    dist_init: bool = False) -> MMState:
         """Initialization (centralized chordal by default, DChordal with
         dist_init=True), then the first update."""
-        st = init_state(self.probs, self._start(t, R, dist_init), self.opts)
-        st = st.replace(Z=self._exchange_halos(st.Z))
-        st = st.replace(Z_prev=st.Z)
-        st, probs = self._update(st, 0, first=True)
-        self._reweighted = (st.scale_w, probs)
+        with span("init", setup=True):
+            t, R = self._start(t, R, dist_init)
+            with span("init.update", setup=True):
+                st = init_state(self.probs, self._pack_start(t, R),
+                                self.opts)
+                st = st.replace(Z=self._exchange_halos(st.Z))
+                st = st.replace(Z_prev=st.Z)
+                st, probs = self._update(st, 0, first=True)
+                self._reweighted = (st.scale_w, probs)
+                sync(self.device)
         return st
 
     # ----------------------------------------------------------- stepping
@@ -320,10 +339,18 @@ class DPGOSolver:
             return self.run_steps_eager(st, k0, num_steps)
         if num_steps <= 0:
             return st, k0
-        g = self._step_graph(st, k0)
-        for _ in range(num_steps):
-            g.replay()
-        return g.result(), k0 + num_steps
+        Spans.next_solve()
+        with span("solve", self.device) as rec:
+            rec.steps = num_steps
+            with span("solve.load"):
+                g = self._step_graph(st, k0)
+            rec.mark_start()
+            for _ in range(num_steps):
+                g.replay()
+            rec.mark_end()
+            with span("solve.result"):
+                out = g.result()
+        return out, k0 + num_steps
 
     def run_steps_history(self, st: MMState, k0: int, num_steps: int):
         """`num_steps` iterations recording (2f, 2|grad|) per step on the
@@ -379,30 +406,6 @@ class DPGOSolver:
         c = self._graph.captured
         return {"capture_s": c.capture_s, "warmup_s": c.warmup_s,
                 "pool_bytes": c.pool_bytes}
-
-    def step_flops(self, st, k: int = 0) -> int:
-        """Floating-point operations of one solver step from `st`
-        (dpgo_tpu/driver.py::DPGOSolver.step_flops): PyTorch's
-        FlopCounterMode over one step on the host-read route (matrix
-        products; elementwise work is not counted), plus the analytic count
-        of every K1 and K2 launch in it, which the wrappers add to the
-        device counters "stpcg.flops" and "polar_so3.flops" (a ctypes launch
-        is invisible to FlopCounterMode). The state and the solver are left
-        as they were."""
-        from torch.utils.flop_counter import FlopCounterMode
-        names = ("stpcg.flops", "polar_so3.flops")
-        saved = (self.syncs, self._reweighted)
-        snap = DeviceCounters.snapshot()
-        before = sum(DeviceCounters.read(n) for n in names)
-        self.syncs = HostSyncs()
-        try:
-            with route("host"), FlopCounterMode(display=False) as fc:
-                self._step(st, k)
-            kernels = sum(DeviceCounters.read(n) for n in names) - before
-        finally:
-            self.syncs, self._reweighted = saved
-            DeviceCounters.restore(snap)
-        return int(fc.get_total_flops()) + int(kernels)
 
     def _metrics(self, st: MMState):
         """Exact global (2 f, 2 |grad|) at the current own estimates."""
@@ -665,11 +668,18 @@ class DPGOStarSolver(DPGOSolver):
         return evaluate_f(self.edges, t, R, self.loss, self.loss_reg)
 
     def initialize(self, t=None, R=None, dist_init: bool = False):
-        Z = self._start(t, R, dist_init)
-        st = star_mod.init_star_state(self.probs, Z, 0.0)
-        st = st.replace(Z=self._exchange_halos(st.Z))
-        st = st.replace(Z_prev=st.Z, F=self._global_f(st.Z.t, st.Z.R))
-        return star_mod.update_star(self.probs, st, self.opts, first=True)
+        with span("init", setup=True):
+            t, R = self._start(t, R, dist_init)
+            with span("init.update", setup=True):
+                st = star_mod.init_star_state(self.probs,
+                                              self._pack_start(t, R), 0.0)
+                st = st.replace(Z=self._exchange_halos(st.Z))
+                st = st.replace(Z_prev=st.Z,
+                                F=self._global_f(st.Z.t, st.Z.R))
+                st = star_mod.update_star(self.probs, st, self.opts,
+                                          first=True)
+                sync(self.device)
+        return st
 
     def problems(self, st):
         return self.probs

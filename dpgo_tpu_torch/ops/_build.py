@@ -25,6 +25,8 @@ import shutil
 import subprocess
 import tempfile
 
+from dpgo_tpu_torch.utils import span
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "dpgo_tpu_torch")
@@ -101,6 +103,25 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(logs)
 
 
+def _compile(verbose: bool) -> None:
+    """Every source to an object by its own nvcc, side by side, then the
+    objects to the library, renamed into place."""
+    nvcc = _nvcc()
+    ptxas = ["--ptxas-options=-v"] if verbose else []
+    srcs = [s for s in sources() if s.endswith(".cu")]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                for s in srcs]
+        log = _run_all([[nvcc, *ARCH_FLAGS, *ptxas, "-std=c++17", "-O3",
+                         "-c", "-Xcompiler", "-fPIC", "-lineinfo", "-o",
+                         o, s] for s, o in zip(srcs, objs)])
+        lib = os.path.join(tmp, os.path.basename(LIB_PATH))
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, LIB_PATH)
+    if verbose:
+        print(log)
+
+
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the library is missing or stale; returns its
     path. The check and the build run under a file lock on the build
@@ -123,20 +144,8 @@ def build(verbose: bool = False) -> str:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if fresh():  # another process built it while this one waited
             return LIB_PATH
-        nvcc = _nvcc()
-        ptxas = ["--ptxas-options=-v"] if verbose else []
-        srcs = [s for s in sources() if s.endswith(".cu")]
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            objs = [os.path.join(tmp, os.path.basename(s) + ".o")
-                    for s in srcs]
-            log = _run_all([[nvcc, *ARCH_FLAGS, *ptxas, "-std=c++17", "-O3",
-                             "-c", "-Xcompiler", "-fPIC", "-lineinfo", "-o",
-                             o, s] for s, o in zip(srcs, objs)])
-            lib = os.path.join(tmp, os.path.basename(LIB_PATH))
-            _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
-            os.replace(lib, LIB_PATH)
-        if verbose:
-            print(log)
+        with span("kernels.build", setup=True):
+            _compile(verbose)
         with open(stamp + ".tmp", "w") as fh:
             fh.write(digest)
         os.replace(stamp + ".tmp", stamp)
@@ -144,13 +153,15 @@ def build(verbose: bool = False) -> str:
 
 
 def load(verbose: bool = False) -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process."""
+    """Build (if needed) and load the kernel library, once per process
+    (spans "kernels.load" and, where nvcc runs, "kernels.build")."""
     if _Loaded.lib is None:
-        lib = ctypes.CDLL(build(verbose))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        with span("kernels.load", setup=True):
+            lib = ctypes.CDLL(build(verbose))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _Loaded.lib = lib
     return _Loaded.lib
 

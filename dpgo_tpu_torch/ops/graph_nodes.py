@@ -26,7 +26,8 @@ above world size 1; NCCL then asks that no collective be launched outside
 a graph while a graph launch is outstanding, so every replay goes through
 `replay` and the collectives `settle` the card before an uncaptured launch.
 
-Nothing here runs at import time; the library is loaded at the first node.
+Nothing here runs at import time; the library is loaded at the first
+warm-up or capture.
 """
 
 from __future__ import annotations
@@ -35,12 +36,11 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
-import time
 
 import torch
 
 from dpgo_tpu_torch.ops import _build
-from dpgo_tpu_torch.utils import DeviceCounters, flatten, route
+from dpgo_tpu_torch.utils import DeviceCounters, flatten, route, span
 
 IF, WHILE = 0, 1
 
@@ -102,6 +102,7 @@ def capture(graph: torch.cuda.CUDAGraph, device: torch.device, pool):
         torch.cuda.current_device()
     if _Capture.active is not None:
         raise RuntimeError("a graph capture is already underway")
+    _build.load()  # the nodes' library, loaded outside the capture
     body_pool = torch.cuda.MemPool()
     with torch.cuda.device(index), torch.cuda.graph(
             graph, pool=pool, capture_error_mode="thread_local"):
@@ -234,35 +235,37 @@ def warm_and_capture(device: torch.device, fn) -> Captured:
     torch.cuda.set_sync_debug_mode("error"), so that a host read in `fn`
     raises there, before the capture begins: a failed capture never leaves
     one half made. Then the capture, which raises if the runtime refuses
-    an operation; there is no fallback to the host-read route."""
-    t0 = time.perf_counter()
-    warm_streams(device)
-    snap = DeviceCounters.snapshot()
-    # Garbage first: freeing a graph synchronizes, which under the
-    # sync-debug mode below raises inside a destructor (an abort).
-    gc.collect()
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        with route("warm"):
-            fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
-    torch.cuda.synchronize(device)
-    DeviceCounters.restore(snap)
-    warmup_s = time.perf_counter() - t0
+    an operation; there is no fallback to the host-read route. Spans
+    "graph.warmup" and "graph.capture" time the two (`Captured.warmup_s`,
+    `capture_s`)."""
+    with span("graph.warmup", setup=True) as warm:
+        _build.load()  # the kernel library, before any route but the host's
+        warm_streams(device)
+        snap = DeviceCounters.snapshot()
+        # Garbage first: freeing a graph synchronizes, which under the
+        # sync-debug mode below raises inside a destructor (an abort).
+        gc.collect()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with route("warm"):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize(device)
+        DeviceCounters.restore(snap)
 
     # (torch.cuda.graph empties the cache on entry too.)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     graph = torch.cuda.CUDAGraph()
-    t0 = time.perf_counter()
-    with capture(graph, device, torch.cuda.graph_pool_handle()) \
-            as body_pool, route("capture"):
-        out = fn()
-    torch.cuda.synchronize(device)
+    with span("graph.capture", setup=True) as cap:
+        with capture(graph, device, torch.cuda.graph_pool_handle()) \
+                as body_pool, route("capture"):
+            out = fn()
+        torch.cuda.synchronize(device)
     return Captured(graph=graph, out=out, body_pool=body_pool,
-                    warmup_s=warmup_s, capture_s=time.perf_counter() - t0,
+                    warmup_s=warm.host_s, capture_s=cap.host_s,
                     pool_bytes=torch.cuda.memory_reserved(device) - reserved)
 
 

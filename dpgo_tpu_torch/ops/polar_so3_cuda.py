@@ -18,10 +18,6 @@ from dpgo_tpu_torch.utils import DeviceCounters
 _SYMBOLS = {torch.float32: "dpgo_polar_so3", torch.float64: "dpgo_polar_so3_f64"}
 # The DeviceCounters name of each instantiation.
 COUNTERS = {torch.float32: "polar_so3", torch.float64: "polar_so3_f64"}
-# Float operations per matrix, counted from the source: the normalization
-# and 9 Newton steps (a determinant, an adjugate, two norms and the scaled
-# update, ~120 each); added to the device counter "polar_so3.flops".
-FLOPS_PER_MATRIX = 1110
 
 
 class Launches:
@@ -61,8 +57,6 @@ def polar_so3_cuda(A: torch.Tensor) -> torch.Tensor:
         err = fn(A.data_ptr(), out.data_ptr(), A.shape[0], stream)
     _build.check(err, "polar_so3")
     DeviceCounters.bump(COUNTERS[A.dtype], A.device)
-    DeviceCounters.bump("polar_so3.flops", A.device,
-                        FLOPS_PER_MATRIX * A.shape[0])
     Launches.count += 1
     Launches.by_dtype[A.dtype] += 1
     return out

@@ -173,8 +173,6 @@ def stpcg_fused(H, P, g, v0, Q, S, Delta, active, *, max_iters: int,
             nd, d, C, int(max_iters), float(kappa_fgr), float(theta), stream)
     _build.check(err, "stpcg")
     DeviceCounters.bump(COUNTERS[d], dev)
-    # Per CG iteration of a node one Hred and one P pass, 2 nd^2 d each.
-    DeviceCounters.bump("stpcg.flops", dev, k.sum() * (4 * nd * nd * d))
     Launches.count += 1
     Launches.by_d[d] += 1
     return h, Hh, norm, k

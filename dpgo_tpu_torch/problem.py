@@ -52,7 +52,8 @@ from dpgo_tpu_torch.manifold import (proj_tangent, project_sod,
                                      sym_block_diag_product)
 from dpgo_tpu_torch.ops import stpcg_cuda
 from dpgo_tpu_torch.ops.stpcg import sel
-from dpgo_tpu_torch.utils import HostSyncs, bounded_while, resolve_device
+from dpgo_tpu_torch.utils import (HostSyncs, bounded_while, resolve_device,
+                                  span, sync)
 
 
 def _nsum(x: torch.Tensor) -> torch.Tensor:
@@ -1124,6 +1125,59 @@ def _component_null_space(mg: MultiGraph) -> np.ndarray:
     return null_V
 
 
+def _dense_images(mg: MultiGraph, mG00: np.ndarray, xi: float):
+    """The dense operator images (tall Q-storage) of the dense path, host
+    float64: (mG00 + xi on the real poses, mG01 [N, n0, n0 d], mG11
+    [N, n0 d, n0 d])."""
+    N, n0m, d = mg.num_nodes, mg.n0_max, mg.d
+    nd = n0m * d
+    mG01_d = np.zeros((N, n0m, nd))
+    mG11_d = np.zeros((N, nd, nd))
+    eye = np.eye(d)
+    ar = np.arange(d)
+
+    def add_blocks(M, rows, cols, vals):
+        """M[rows*d:+d, cols*d:+d] += vals, vectorized over edges."""
+        r = rows[:, None, None] * d + ar[None, :, None]
+        c = cols[:, None, None] * d + ar[None, None, :]
+        np.add.at(M, (r, c), vals)
+
+    for a in range(N):
+        ii, jj = mg.a_i[a], mg.a_j[a]
+        tau = mg.a_tau[a] * mg.a_mask[a]
+        kap = mg.a_kap[a] * mg.a_mask[a]
+        tt = mg.a_t[a]
+        Rm = mg.a_R[a]
+        ttT = tt[:, :, None] * tt[:, None, :]
+        add_blocks(mG11_d[a], ii, ii,
+                   kap[:, None, None] * eye + tau[:, None, None] * ttT)
+        add_blocks(mG11_d[a], jj, jj, kap[:, None, None] * eye)
+        add_blocks(mG11_d[a], ii, jj, -kap[:, None, None] * Rm)
+        add_blocks(mG11_d[a], jj, ii,
+                   -kap[:, None, None] * np.swapaxes(Rm, -1, -2))
+        # mG01: row t_i += tau t~^T in Q_i cols; row t_j -= same.
+        c01 = ii[:, None] * d + ar[None, :]
+        np.add.at(mG01_d[a], (ii[:, None], c01), tau[:, None] * tt)
+        np.add.at(mG01_d[a], (jj[:, None], c01), -tau[:, None] * tt)
+
+        es = mg.e_self[a]
+        etau = mg.e_tau[a] * mg.e_mask[a]
+        ekap = mg.e_kap[a] * mg.e_mask[a]
+        ett = mg.e_t[a]
+        is_tail = mg.e_self_is_i[a]
+        ettT = ett[:, :, None] * ett[:, None, :]
+        add_blocks(mG11_d[a], es, es,
+                   2 * ekap[:, None, None] * eye
+                   + 2 * (etau * is_tail)[:, None, None] * ettT)
+        ce = es[:, None] * d + ar[None, :]
+        np.add.at(mG01_d[a], (es[:, None], ce),
+                  2 * (etau * is_tail)[:, None] * ett)
+        mG11_d[a][np.diag_indices(nd)] += xi
+    mG00_full = mG00 + xi * np.where(
+        mg.pose_mask, 1.0, 0.0)[:, :, None] * np.eye(n0m)
+    return mG00_full, mG01_d, mG11_d
+
+
 def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
                         loss: Loss = Loss.TRIVIAL, loss_reg: float = 1.0,
                         precon_cond: float = 1e6,
@@ -1159,190 +1213,150 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
     dense = n0m * d <= dense_limit and not seg
     if seg_cg_tol is None:
         seg_cg_tol = 1e-7 if dtype == torch.float64 else 3e-6
-    diagT = np.full((N, n0m), 1.5 * xi)
-    nvec = np.zeros((N, n0m, d))
-    S = np.tile(1.5 * xi * np.eye(d), (N, n0m, 1, 1))
-    mG00 = np.zeros((N, 1, 1) if seg else (N, n0m, n0m))
-    jac = np.tile(xi * np.eye(d), (N, n0m, 1, 1))  # mG11 block-diagonal
-
-    for a in range(N):
-        ii, jj = mg.a_i[a], mg.a_j[a]
-        tau = mg.a_tau[a]
-        kap = mg.a_kap[a]
-        tt = mg.a_t[a]
-        msk = mg.a_mask[a]
-        np.add.at(diagT[a], ii, 2 * tau * msk)
-        np.add.at(diagT[a], jj, 2 * tau * msk)
-        np.add.at(nvec[a], ii, 2 * tau[:, None] * tt * msk[:, None])
-        np.add.at(S[a], ii, (2 * kap * msk)[:, None, None] * np.eye(d)
-                  + (2 * tau * msk)[:, None, None]
-                  * tt[:, :, None] * tt[:, None, :])
-        np.add.at(S[a], jj, (2 * kap * msk)[:, None, None] * np.eye(d))
-        # mG00 intra Laplacian.
-        w = tau * msk
-        if not seg:
-            np.add.at(mG00[a], (ii, ii), w)
-            np.add.at(mG00[a], (jj, jj), w)
-            np.add.at(mG00[a], (ii, jj), -w)
-            np.add.at(mG00[a], (jj, ii), -w)
-        # mG11 block diagonal (Jacobi preconditioner).
-        np.add.at(jac[a], ii, (kap * msk)[:, None, None] * np.eye(d)
-                  + (tau * msk)[:, None, None]
-                  * tt[:, :, None] * tt[:, None, :])
-        np.add.at(jac[a], jj, (kap * msk)[:, None, None] * np.eye(d))
-
-        es = mg.e_self[a]
-        et = mg.e_tau[a] * mg.e_mask[a]
-        ek = mg.e_kap[a] * mg.e_mask[a]
-        ett = mg.e_t[a]
-        is_tail = mg.e_self_is_i[a]
-        np.add.at(diagT[a], es, 2 * et)
-        np.add.at(nvec[a], es, (2 * et * is_tail)[:, None] * ett)
-        np.add.at(S[a], es, (2 * ek)[:, None, None] * np.eye(d)
-                  + (2 * et * is_tail)[:, None, None]
-                  * ett[:, :, None] * ett[:, None, :])
-        np.add.at(jac[a], es, (2 * ek)[:, None, None] * np.eye(d)
-                  + (2 * et * is_tail)[:, None, None]
-                  * ett[:, :, None] * ett[:, None, :])
-        if not seg:
-            np.add.at(mG00[a], (es, es), 2 * et)
-            # Padded poses get an identity diagonal (decoupled,
-            # well-conditioned).
-            real = mg.pose_mask[a]
-            mG00[a][np.diag_indices(n0m)] += np.where(real, 0.0, 1.0)
-
-    Tinv = 1.0 / diagT
-    W = S - Tinv[:, :, None, None] * nvec[:, :, :, None] * nvec[:, :, None, :]
-
-    if seg:
-        null_V = _component_null_space(mg)
-        Minv_red = np.zeros((N, 1, 1))
-    else:
-        # Split inverse of mG00 = L + xi I per node: eigendecompose the PSD
-        # L, clamp the spectrum at zero, and separate the (near-)null
-        # eigenspace so the reduced inverse has bounded entries.
-        lam, V = np.linalg.eigh(mG00)  # L without xi
-        lam = np.maximum(lam, 0.0)
-        scale = lam.max(axis=1, keepdims=True)
-        null_mask = lam < 1e-10 * np.maximum(scale, 1.0)  # [N, n0m]
-        kmax = max(int(null_mask.sum(axis=1).max()), 1)
-        Minv_red = np.zeros((N, n0m, n0m))
-        null_V = np.zeros((N, n0m, kmax))
-        for a in range(N):
-            nm = null_mask[a]
-            w = np.where(nm, 0.0, 1.0 / (lam[a] + xi))
-            Minv_red[a] = (V[a] * w[None, :]) @ V[a].T
-            k = int(nm.sum())
-            null_V[a][:, :k] = V[a][:, nm]
-
-    # lambda_max of the rotational block for the regularized
-    # preconditioners: the largest Gershgorin bound of the block diagonal,
-    # refined by Lanczos on the dense mG11 where that is built.
-    lam_max = np.abs(jac).sum(axis=(-1, -2)).max(axis=-1)  # [N]
-
-    if dense:
-        # Dense operator images (tall Q-storage).
-        nd = n0m * d
-        mG01_d = np.zeros((N, n0m, nd))
-        mG11_d = np.zeros((N, nd, nd))
-        eye = np.eye(d)
-        ar = np.arange(d)
-
-        def add_blocks(M, rows, cols, vals):
-            """M[rows*d:+d, cols*d:+d] += vals, vectorized over edges."""
-            r = rows[:, None, None] * d + ar[None, :, None]
-            c = cols[:, None, None] * d + ar[None, None, :]
-            np.add.at(M, (r, c), vals)
+    with span("build.assemble", setup=True):
+        diagT = np.full((N, n0m), 1.5 * xi)
+        nvec = np.zeros((N, n0m, d))
+        S = np.tile(1.5 * xi * np.eye(d), (N, n0m, 1, 1))
+        mG00 = np.zeros((N, 1, 1) if seg else (N, n0m, n0m))
+        jac = np.tile(xi * np.eye(d), (N, n0m, 1, 1))  # mG11 block-diagonal
 
         for a in range(N):
             ii, jj = mg.a_i[a], mg.a_j[a]
-            tau = mg.a_tau[a] * mg.a_mask[a]
-            kap = mg.a_kap[a] * mg.a_mask[a]
+            tau = mg.a_tau[a]
+            kap = mg.a_kap[a]
             tt = mg.a_t[a]
-            Rm = mg.a_R[a]
-            ttT = tt[:, :, None] * tt[:, None, :]
-            add_blocks(mG11_d[a], ii, ii,
-                       kap[:, None, None] * eye + tau[:, None, None] * ttT)
-            add_blocks(mG11_d[a], jj, jj, kap[:, None, None] * eye)
-            add_blocks(mG11_d[a], ii, jj, -kap[:, None, None] * Rm)
-            add_blocks(mG11_d[a], jj, ii,
-                       -kap[:, None, None] * np.swapaxes(Rm, -1, -2))
-            # mG01: row t_i += tau t~^T in Q_i cols; row t_j -= same.
-            c01 = ii[:, None] * d + ar[None, :]
-            np.add.at(mG01_d[a], (ii[:, None], c01), tau[:, None] * tt)
-            np.add.at(mG01_d[a], (jj[:, None], c01), -tau[:, None] * tt)
+            msk = mg.a_mask[a]
+            np.add.at(diagT[a], ii, 2 * tau * msk)
+            np.add.at(diagT[a], jj, 2 * tau * msk)
+            np.add.at(nvec[a], ii, 2 * tau[:, None] * tt * msk[:, None])
+            np.add.at(S[a], ii, (2 * kap * msk)[:, None, None] * np.eye(d)
+                      + (2 * tau * msk)[:, None, None]
+                      * tt[:, :, None] * tt[:, None, :])
+            np.add.at(S[a], jj, (2 * kap * msk)[:, None, None] * np.eye(d))
+            # mG00 intra Laplacian.
+            w = tau * msk
+            if not seg:
+                np.add.at(mG00[a], (ii, ii), w)
+                np.add.at(mG00[a], (jj, jj), w)
+                np.add.at(mG00[a], (ii, jj), -w)
+                np.add.at(mG00[a], (jj, ii), -w)
+            # mG11 block diagonal (Jacobi preconditioner).
+            np.add.at(jac[a], ii, (kap * msk)[:, None, None] * np.eye(d)
+                      + (tau * msk)[:, None, None]
+                      * tt[:, :, None] * tt[:, None, :])
+            np.add.at(jac[a], jj, (kap * msk)[:, None, None] * np.eye(d))
 
             es = mg.e_self[a]
-            etau = mg.e_tau[a] * mg.e_mask[a]
-            ekap = mg.e_kap[a] * mg.e_mask[a]
+            et = mg.e_tau[a] * mg.e_mask[a]
+            ek = mg.e_kap[a] * mg.e_mask[a]
             ett = mg.e_t[a]
             is_tail = mg.e_self_is_i[a]
-            ettT = ett[:, :, None] * ett[:, None, :]
-            add_blocks(mG11_d[a], es, es,
-                       2 * ekap[:, None, None] * eye
-                       + 2 * (etau * is_tail)[:, None, None] * ettT)
-            ce = es[:, None] * d + ar[None, :]
-            np.add.at(mG01_d[a], (es[:, None], ce),
-                      2 * (etau * is_tail)[:, None] * ett)
-            mG11_d[a][np.diag_indices(nd)] += xi
-        mG00_full = mG00 + xi * np.where(
-            mg.pose_mask, 1.0, 0.0)[:, :, None] * np.eye(n0m)
+            np.add.at(diagT[a], es, 2 * et)
+            np.add.at(nvec[a], es, (2 * et * is_tail)[:, None] * ett)
+            np.add.at(S[a], es, (2 * ek)[:, None, None] * np.eye(d)
+                      + (2 * et * is_tail)[:, None, None]
+                      * ett[:, :, None] * ett[:, None, :])
+            np.add.at(jac[a], es, (2 * ek)[:, None, None] * np.eye(d)
+                      + (2 * et * is_tail)[:, None, None]
+                      * ett[:, :, None] * ett[:, None, :])
+            if not seg:
+                np.add.at(mG00[a], (es, es), 2 * et)
+                # Padded poses get an identity diagonal (decoupled,
+                # well-conditioned).
+                real = mg.pose_mask[a]
+                mG00[a][np.diag_indices(n0m)] += np.where(real, 0.0, 1.0)
 
-        # Reduced (t-eliminated) rotation operator
-        # Hred = mG11 - mG10 mG00^+ mG01 (null response dropped:
-        # null_V^T mG01 = 0 exactly), computed once in f64 on the host.
-        Hred_d = np.zeros((N, nd, nd))
+        Tinv = 1.0 / diagT
+        W = S - (Tinv[:, :, None, None] * nvec[:, :, :, None]
+                 * nvec[:, :, None, :])
+        if dense:
+            mG00_full, mG01_d, mG11_d = _dense_images(mg, mG00, xi)
+        else:
+            mG00_full = mG01_d = mG11_d = np.zeros((N, 1, 1))
+
+    with span("build.linalg", setup=True):
+        if seg:
+            null_V = _component_null_space(mg)
+            Minv_red = np.zeros((N, 1, 1))
+        else:
+            # Split inverse of mG00 = L + xi I per node: eigendecompose the
+            # PSD L, clamp the spectrum at zero, and separate the (near-)null
+            # eigenspace so the reduced inverse has bounded entries.
+            lam, V = np.linalg.eigh(mG00)  # L without xi
+            lam = np.maximum(lam, 0.0)
+            scale = lam.max(axis=1, keepdims=True)
+            null_mask = lam < 1e-10 * np.maximum(scale, 1.0)  # [N, n0m]
+            kmax = max(int(null_mask.sum(axis=1).max()), 1)
+            Minv_red = np.zeros((N, n0m, n0m))
+            null_V = np.zeros((N, n0m, kmax))
+            for a in range(N):
+                nm = null_mask[a]
+                w = np.where(nm, 0.0, 1.0 / (lam[a] + xi))
+                Minv_red[a] = (V[a] * w[None, :]) @ V[a].T
+                k = int(nm.sum())
+                null_V[a][:, :k] = V[a][:, nm]
+
+        # lambda_max of the rotational block for the regularized
+        # preconditioners: the largest Gershgorin bound of the block
+        # diagonal, refined by Lanczos on the dense mG11 where that is built.
+        lam_max = np.abs(jac).sum(axis=(-1, -2)).max(axis=-1)  # [N]
+
+        if dense:
+            nd = n0m * d
+            # Reduced (t-eliminated) rotation operator
+            # Hred = mG11 - mG10 mG00^+ mG01 (null response dropped:
+            # null_V^T mG01 = 0 exactly), computed once in f64 on the host.
+            Hred_d = np.zeros((N, nd, nd))
+            for a in range(N):
+                X = Minv_red[a] @ mG01_d[a]
+                Hred_d[a] = mG11_d[a] - mG01_d[a].T @ X
+                Hred_d[a] = 0.5 * (Hred_d[a] + Hred_d[a].T)
+
+            from dpgo_tpu_torch.ops.eigen import lambda_max_lanczos
+            for a in range(N):
+                lam_max[a] = lambda_max_lanczos(mG11_d[a], seed=node0 + a)
+
+            # Dense regularized inverse of the full reduced Hessian (the
+            # reference's RegularizedCholesky role, lambda_max by Lanczos as
+            # Spectra does there; seeds as in the JAX package): applied as
+            # one matmul per STPCG iteration, so CG only corrects for the
+            # curvature term and the tangent projection.
+            precon_dense = np.zeros((N, nd, nd))
+            for a in range(N):
+                lam_h = lambda_max_lanczos(Hred_d[a], seed=1000 + node0 + a)
+                precon_dense[a] = np.linalg.inv(
+                    Hred_d[a] + (lam_h / precon_cond) * np.eye(nd))
+        else:
+            Hred_d = precon_dense = np.zeros((N, 1, 1))
+
+        # Regularized block-Jacobi preconditioner: per-pose inverses of the
+        # mG11 diagonal blocks + (lambda_max(mG11) / precon_cond) I.
+        reg = lam_max / precon_cond
+        precon_inv = np.linalg.inv(jac + reg[:, None, None, None] * np.eye(d))
+
+        # Inter-pose selector + base-inverse columns for the dynamic-rescale
+        # Woodbury translation solve.
+        ipose_list = [np.unique(mg.e_self[a][mg.e_mask[a]]) for a in range(N)]
+        kmax = max([len(v) for v in ipose_list] + [1])
+        ipose = np.zeros((N, kmax), np.int64)
+        imask = np.zeros((N, kmax), bool)
+        SU = np.zeros((N, 1, 1) if seg else (N, n0m, kmax))
         for a in range(N):
-            X = Minv_red[a] @ mG01_d[a]
-            Hred_d[a] = mG11_d[a] - mG01_d[a].T @ X
-            Hred_d[a] = 0.5 * (Hred_d[a] + Hred_d[a].T)
+            cols = ipose_list[a]
+            k = len(cols)
+            ipose[a, :k] = cols
+            imask[a, :k] = True
+            if k and not seg:
+                SU[a][:, :k] = Minv_red[a][:, cols] \
+                    + null_V[a] @ null_V[a][cols, :].T / xi
 
-        from dpgo_tpu_torch.ops.eigen import lambda_max_lanczos
-        for a in range(N):
-            lam_max[a] = lambda_max_lanczos(mG11_d[a], seed=node0 + a)
-
-        # Dense regularized inverse of the full reduced Hessian (the
-        # reference's RegularizedCholesky role, lambda_max by Lanczos as
-        # Spectra does there; seeds as in the JAX package): applied as one
-        # matmul per STPCG iteration, so CG only corrects for the curvature
-        # term and the tangent projection.
-        precon_dense = np.zeros((N, nd, nd))
-        for a in range(N):
-            lam_h = lambda_max_lanczos(Hred_d[a], seed=1000 + node0 + a)
-            precon_dense[a] = np.linalg.inv(
-                Hred_d[a] + (lam_h / precon_cond) * np.eye(nd))
-    else:
-        mG00_full = mG01_d = mG11_d = Hred_d = precon_dense = np.zeros(
-            (N, 1, 1))
-
-    # Regularized block-Jacobi preconditioner: per-pose inverses of the mG11
-    # diagonal blocks + (lambda_max(mG11) / precon_cond) I.
-    reg = lam_max / precon_cond
-    precon_inv = np.linalg.inv(jac + reg[:, None, None, None] * np.eye(d))
-
-    # Inter-pose selector + base-inverse columns for the dynamic-rescale
-    # Woodbury translation solve.
-    ipose_list = [np.unique(mg.e_self[a][mg.e_mask[a]]) for a in range(N)]
-    kmax = max([len(v) for v in ipose_list] + [1])
-    ipose = np.zeros((N, kmax), np.int64)
-    imask = np.zeros((N, kmax), bool)
-    SU = np.zeros((N, 1, 1) if seg else (N, n0m, kmax))
-    for a in range(N):
-        cols = ipose_list[a]
-        k = len(cols)
-        ipose[a, :k] = cols
-        imask[a, :k] = True
-        if k and not seg:
-            SU[a][:, :k] = Minv_red[a][:, cols] \
-                + null_V[a] @ null_V[a][cols, :].T / xi
-
-    if seg:
-        (seg_t_inv, seg_c_inv, seg_R_inv, seg_diag, seg_blk, seg_row,
-         seg_col) = _build_segment_factors(mg, xi, seg_size, reg)
-    else:
-        seg_t_inv = seg_R_inv = seg_diag = seg_blk = np.zeros((N, 1, 1, 1))
-        seg_c_inv = np.zeros((N, 1, 1))
-        seg_row = seg_col = np.zeros((N, 1), np.int64)
+        if seg:
+            (seg_t_inv, seg_c_inv, seg_R_inv, seg_diag, seg_blk, seg_row,
+             seg_col) = _build_segment_factors(mg, xi, seg_size, reg)
+        else:
+            seg_t_inv = seg_R_inv = seg_diag = seg_blk = np.zeros((N, 1, 1, 1))
+            seg_c_inv = np.zeros((N, 1, 1))
+            seg_row = seg_col = np.zeros((N, 1), np.int64)
 
     arrays = dict(
         pose_mask=mg.pose_mask, diagT_inv=Tinv, nvec=nvec, W=W,
@@ -1358,7 +1372,10 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
         seg_t_inv=seg_t_inv, seg_c_inv=seg_c_inv, seg_R_inv=seg_R_inv,
         seg_diag=seg_diag, seg_blk=seg_blk, seg_row=seg_row,
         seg_col=seg_col)
-    return make_problem(arrays, d=d, xi=xi, loss=loss, loss_reg=loss_reg,
-                        dense=dense, device=device, dtype=dtype, seg=seg,
-                        seg_size=seg_size, seg_cg_iters=seg_cg_iters,
-                        seg_cg_tol=seg_cg_tol)
+    with span("build.upload", setup=True):
+        probs = make_problem(arrays, d=d, xi=xi, loss=loss,
+                             loss_reg=loss_reg, dense=dense, device=device,
+                             dtype=dtype, seg=seg, seg_size=seg_size,
+                             seg_cg_iters=seg_cg_iters, seg_cg_tol=seg_cg_tol)
+        sync(device)
+    return probs

@@ -20,11 +20,13 @@ of the JAX package's `lax.cond`, bounded `lax.while_loop` and
 
 `DeviceCounters` counts on the device (kernel launches, loop entries and
 trips, master fallbacks): inside a graph the counts move at every replay,
-which a Python integer bumped at capture time cannot.
+which a Python integer bumped at capture time cannot. `Spans` records the
+program's phases on the host clock, and a solve's on the card's too.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import time
@@ -402,3 +404,156 @@ def bump_tensor(t: torch.Tensor, by=1) -> None:
     if _Route.live is not None:
         by = _Route.live.to(torch.int64) * by
     t.add_(by)
+
+
+def sync(device) -> None:
+    """Wait for the card (nothing on another device)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def open_device(device) -> None:
+    """Touch the device and wait for it: on a CUDA card the first touch in
+    a process makes its context."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.zeros((), device=dev)
+        torch.cuda.synchronize(dev)
+
+
+@dataclasses.dataclass(eq=False, slots=True)
+class SpanRecord:
+    """One span (`Spans.span`). Host times are `time.perf_counter_ns()`.
+    `parent` is the `seq` of the innermost span open at its start, `solve`
+    the count of graph-route solves (`DPGOSolver.run_steps`) at its start,
+    None for a set-up span, and `steps` the solver steps a solve ran. A
+    span on a CUDA device holds two timing events on the stream that was
+    current, recorded at its start and end (or where `mark_start` /
+    `mark_end` place them), each beside the host time of its recording."""
+
+    seq: int
+    name: str
+    parent: int | None
+    solve: int | None
+    start_ns: int
+    end_ns: int | None = None
+    steps: int = 0
+    start_event: object = None
+    end_event: object = None
+    start_event_ns: int | None = None
+    end_event_ns: int | None = None
+
+    @property
+    def host_s(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+    def mark_start(self) -> None:
+        """Record the start event here (again, where it was recorded at the
+        span's start)."""
+        if self.start_event is not None:
+            self.start_event.record()
+            self.start_event_ns = time.perf_counter_ns()
+
+    def mark_end(self) -> None:
+        """Record the end event here; the span's exit then leaves it."""
+        if self.end_event is not None:
+            self.end_event.record()
+            self.end_event_ns = time.perf_counter_ns()
+
+
+class Spans:
+    """The program's spans: set-up phases (`build`, `init` and their parts,
+    the kernel library's load, the warm-up and capture of a captured
+    program) and a few per solve (`solve`, its `solve.load` and
+    `solve.result`, `gather`). Always on; none opens inside a captured
+    body (on the "warm" or "capture" route a span raises), so a span costs
+    a few host microseconds and never waits for the card.
+
+    The records stay in memory in a ring of RING records (a solve makes 4,
+    so a run of a thousand solves and its set-up fit with room to spare);
+    older records are dropped. `records`, `host_s` and `card_ms` read them
+    back. The first solve's start event, recorded while the stream is idle,
+    puts the card's clock on the host's (`on_host_clock`)."""
+
+    RING = 8192
+
+    _ring: collections.deque = collections.deque(maxlen=RING)
+    _open: list = []
+    _seq = 0
+    solves = 0  # graph-route solves so far
+
+    @classmethod
+    @contextlib.contextmanager
+    def span(cls, name: str, device=None, setup: bool = False):
+        """A span named `name` around the block; yields its SpanRecord.
+        `device`: with a CUDA device, timing events on the current stream
+        at its start and end. `setup`: a one-shot set-up phase, which
+        carries no solve index."""
+        if _Route.mode in ("warm", "capture"):
+            raise RuntimeError(f"span {name!r} opened on the {_Route.mode!r} "
+                               "route: no span goes inside a captured body")
+        rec = SpanRecord(seq=cls._seq, name=name,
+                         parent=cls._open[-1].seq if cls._open else None,
+                         solve=None if setup else cls.solves,
+                         start_ns=time.perf_counter_ns())
+        cls._seq += 1
+        if device is not None and torch.device(device).type == "cuda":
+            rec.start_event = torch.cuda.Event(enable_timing=True)
+            rec.end_event = torch.cuda.Event(enable_timing=True)
+            rec.mark_start()
+        cls._ring.append(rec)
+        cls._open.append(rec)
+        try:
+            yield rec
+        finally:
+            cls._open.pop()
+            if rec.end_event_ns is None:
+                rec.mark_end()
+            rec.end_ns = time.perf_counter_ns()
+
+    @classmethod
+    def next_solve(cls) -> int:
+        """Count one more solve; returns its index (from 1)."""
+        cls.solves += 1
+        return cls.solves
+
+    @classmethod
+    def records(cls, name: str | None = None) -> list:
+        """The records in the ring, oldest first (those named `name`)."""
+        return [r for r in cls._ring if name is None or r.name == name]
+
+    @classmethod
+    def host_s(cls, name: str) -> float | None:
+        """Host seconds of the ended records named `name`, summed; None
+        where the ring holds none."""
+        recs = [r for r in cls.records(name) if r.end_ns is not None]
+        return sum(r.host_s for r in recs) if recs else None
+
+    @classmethod
+    def card_ms(cls, a: SpanRecord, b: SpanRecord, frm: str = "end",
+                to: str = "start") -> float:
+        """The card's milliseconds from record a's `frm` event ("start" or
+        "end") to record b's `to` event; waits for the later one."""
+        ea, eb = getattr(a, frm + "_event"), getattr(b, to + "_event")
+        eb.synchronize()
+        return ea.elapsed_time(eb)
+
+    @classmethod
+    def on_host_clock(cls, rec: SpanRecord, which: str = "start") -> int:
+        """The time at which the card reached `rec`'s `which` event, in
+        host nanoseconds: the oldest solve in the ring (its start event
+        recorded while the stream was idle) anchors the two clocks."""
+        anchor = next(r for r in cls._ring
+                      if r.name == "solve" and r.start_event is not None)
+        return anchor.start_event_ns + round(
+            1e6 * cls.card_ms(anchor, rec, "start", which))
+
+    @classmethod
+    def reset(cls) -> None:
+        """Empty the ring (open spans still close) and the solve count."""
+        cls._ring.clear()
+        cls.solves = 0
+
+
+span = Spans.span

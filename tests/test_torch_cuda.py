@@ -840,8 +840,6 @@ def test_graph_route_matches_eager_route(dev, kind, dtype):
     assert s._graph is capture  # no recapture
     for n in names:
         assert DeviceCounters.read(n) >= before[n] + 5, n
-    if kind == "dense":
-        assert s.step_flops(st) > 0
 
 
 @pytest.mark.cuda

@@ -204,17 +204,3 @@ def test_device_cond_and_bounded_while_routes():
     assert (he, ht) == (te, tt) == (1, 4)  # the untaken branch's loop: none
     assert hs == 4 + 1 and ts == 0
 
-
-def test_step_flops_positive_and_stable():
-    """DPGOSolver.step_flops: a positive count, the same on a second call,
-    and the solver's state untouched (syncs, counters)."""
-    from dpgo_tpu_torch.utils import DeviceCounters
-    solver = _solver("amm_dense_refined")
-    st = solver.initialize()
-    DeviceCounters.reset()
-    syncs = solver.syncs.count
-    a = solver.step_flops(st)
-    b = solver.step_flops(st)
-    assert a > 0 and a == b
-    assert solver.syncs.count == syncs
-    assert DeviceCounters.read("tnt.entries") == 0
