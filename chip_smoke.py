@@ -5,7 +5,9 @@
 
 Builds the port's CUDA kernels from `dpgo_tpu_torch/csrc/` (nvcc, one
 process per source, at first use), holds each against its plain PyTorch
-version at the shapes of the paths below (K2 in float32 and float64), then
+version at the shapes of the paths below (K2 in float32 and float64; K3,
+the d x d block products, in every form at rim's edge and pose batches,
+timed beside the torch product), then
 drives these paths once each through the public entry points, the refined
 TNT preset, 16 nodes, float32, 150 iterations:
 
@@ -553,6 +555,98 @@ def phase_polar_so3_f64(rng, dev, card, n=NUM_NODES * 640):
                 bound_ms=bnd, bound_by=by, library_ms=None)
 
 
+# K3's batches at the rim paths' shapes: intra edges m0, inter edges m1 and
+# poses n0 of the 16-node rim_synth problems, summed over the nodes.
+K3_SHAPES = (24848, 14048, 10208)
+
+
+def phase_block_mm(rng, dev, card):
+    """K3 against its plain version (the torch product, cuBLAS on the card)
+    and against float64 products on the host: every form (nn, nt and tn as
+    transpose views, mv) at the rim paths' batches in float32 (within 2e-6
+    of the blocks' unit scale, a 3-term FMA chain), d = 2 float32 and d = 3
+    float64 (1e-14) at the largest; then timed at [24848, 3, 3] nn, the
+    plain `@` as the library beside it. Returns the float32 nn entry with
+    each timed form under "shapes"."""
+    import numpy as np
+    import torch
+
+    from dpgo_tpu_torch.ops import _build, block_mm_cuda
+
+    lib = _build.load()
+    cases = [(torch.float32, 3, n) for n in K3_SHAPES] + [
+        (torch.float32, 2, K3_SHAPES[0]), (torch.float64, 3, K3_SHAPES[0])]
+    err = 0.0
+    for dtype, d, n in cases:
+        A = torch.tensor(rng.normal(size=(n, d, d)), dtype=dtype, device=dev)
+        B = torch.tensor(rng.normal(size=(n, d, d)), dtype=dtype, device=dev)
+        v = torch.tensor(rng.normal(size=(n, d)), dtype=dtype, device=dev)
+        tol = (2e-6 if dtype == torch.float32 else 1e-14) * d
+        for form, out, plain, host in (
+                ("nn", block_mm_cuda.block_mm(A, B), A @ B,
+                 A.double().cpu() @ B.double().cpu()),
+                ("nt", block_mm_cuda.block_mm(A, B.transpose(-1, -2)),
+                 A @ B.transpose(-1, -2),
+                 A.double().cpu() @ B.double().cpu().transpose(-1, -2)),
+                ("tn", block_mm_cuda.block_mm(A.transpose(-1, -2), B),
+                 A.transpose(-1, -2) @ B,
+                 A.double().cpu().transpose(-1, -2) @ B.double().cpu()),
+                ("mv", block_mm_cuda.block_mv(A, v),
+                 (A @ v[..., None])[..., 0],
+                 (A.double().cpu() @ v.double().cpu()[..., None])[..., 0])):
+            e_plain = float((out - plain).abs().max())
+            e_host = float((out.double().cpu() - host).abs().max())
+            err = max(err, e_plain)
+            check(e_host <= tol and e_plain <= 2 * tol,
+                  f"K3 {form} d = {d} {dtype} n = {n}: |kernel - host f64| "
+                  f"{e_host:.3e}, |kernel - plain| {e_plain:.3e} > {tol}")
+        print(f"K3 block_mm d = {d} {str(dtype)[6:]} [{n}, {d}, {d}]: nn / "
+              f"nt / tn / mv within {tol:.0e} of float64 host products; max "
+              f"|kernel - plain| so far {err:.3e}")
+
+    n, d = K3_SHAPES[0], 3
+    A = torch.tensor(rng.normal(size=(n, d, d)), dtype=torch.float32,
+                     device=dev)
+    B = torch.tensor(rng.normal(size=(n, d, d)), dtype=torch.float32,
+                     device=dev)
+    v = B[:, :, 0].contiguous()
+    out = torch.empty_like(A)
+
+    def raw(X, Y, mv):
+        Xs, Ys = X.stride(), Y.stride()
+        return lambda stream: _build.check(lib.dpgo_block_mm(
+            X.data_ptr(), Xs[0], Xs[1], Xs[2], Y.data_ptr(), Ys[0], Ys[1],
+            Ys[2] if not mv else 0, out.data_ptr(), n, d, 0, int(mv), None,
+            None, stream), "block_mm")
+
+    shapes = {}
+    for form, X, Y, mv in (("nn", A, B, False),
+                           ("nt", A, B.transpose(-1, -2), False),
+                           ("mv", A, v, True)):
+        if mv:
+            call, plain = (lambda: block_mm_cuda.block_mv(A, v),
+                           lambda: (A @ v[..., None])[..., 0])
+            nbytes = (n * d * d + 2 * n * d) * 4
+        else:
+            call, plain = (lambda: block_mm_cuda.block_mm(X, Y),
+                           lambda: X @ Y)
+            nbytes = 3 * n * d * d * 4
+        dev_ms = graph_ms(raw(X, Y, mv), 200)
+        ms = cuda_ms(call, 200)
+        plain_ms = cuda_ms(plain, 200)
+        lib_ms = graph_ms(lambda stream: plain(), 200)
+        bnd, by = bound(nbytes, 2 * n * d * (d if not mv else 1) * d)
+        shapes[f"{form} [{n}, 3, 3]"] = dict(
+            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+        print(f"K3 time {form} at [{n}, 3, 3] float32 [{card}]: device "
+              f"{dev_ms:.4f} ms, call {ms:.4f} ms, plain (the torch product) "
+              f"{plain_ms:.4f} ms, library device {lib_ms:.4f} ms; bound "
+              f"{bnd:.5f} ms ({by}: {nbytes} bytes), device time at "
+              f"{bnd / dev_ms:.3f} of the bound")
+    return dict(shapes[f"nn [{n}, 3, 3]"], shapes=shapes)
+
+
 def k1_work(k, nrm, Delta, nd: int, d: int):
     """What one K1 launch did on this data: (operator bytes streamed, bytes
     of the bound, float operations). Per node, k matvecs with Hred and k - 1
@@ -916,7 +1010,7 @@ def run_slice(solver, init, label, steps, runs=2):
 
 
 KERNEL_NAMES = ("polar_so3", "polar_so3_f64", "stpcg", "stpcg_d2",
-                "graph_cond")
+                "block_mm", "graph_cond")
 # The loops whose entries and trips the step counts on the device.
 DEVICE_LOOPS = ("tnt", "stpcg", "seg_cg")
 
@@ -930,10 +1024,11 @@ def kernel_counts():
 
 
 def reset_counts():
-    from dpgo_tpu_torch.ops import polar_so3_cuda, stpcg_cuda
+    from dpgo_tpu_torch.ops import block_mm_cuda, polar_so3_cuda, stpcg_cuda
     from dpgo_tpu_torch.utils import DeviceCounters
     polar_so3_cuda.Launches.reset()
     stpcg_cuda.Launches.reset()
+    block_mm_cuda.Launches.reset()
     DeviceCounters.reset()
 
 
@@ -1049,7 +1144,7 @@ def run_path(name, solver, init, needs, card, steps=ITERS, reset=True,
     _, fhp, _, its_p, syncs_p, _ = run_slice(twin, init, f"{name} plain",
                                              steps, runs)
     after = kernel_counts()
-    check(all(before[k] == after[k] for k in KERNEL_NAMES[:4]),
+    check(all(before[k] == after[k] for k in KERNEL_NAMES[:5]),
           f"{name}: the plain run launched a kernel")
     rel = abs(fh[-1] - fhp[-1]) / abs(fhp[-1])
     print(f"{name} with plain versions [{card}]: 2f at {steps} "
@@ -2897,6 +2992,7 @@ def main() -> int:
     k2_f64_4096 = phase_polar_so3_f64(np.random.default_rng(SEED + 8), dev,
                                       card, n=4096)
     kcond = phase_graph_cond(np.random.default_rng(SEED + 7), dev, card)
+    k3 = phase_block_mm(np.random.default_rng(SEED + 9), dev, card)
     lap("kernel phases")
     # The manhattan graph's .g2o file and the CLI's working directory.
     work = tempfile.TemporaryDirectory()
@@ -3334,6 +3430,9 @@ def main() -> int:
               "dpgo_tpu/ops/pallas_stpcg.py:140", k1_d3),
         entry("stpcg_d2", "dpgo_tpu_torch/csrc/stpcg.cu",
               "dpgo_tpu/ops/pallas_stpcg.py:140", k1_d2),
+        # Not a port of a Pallas kernel: the d x d block products the JAX
+        # package leaves to XLA.
+        entry("block_mm", "dpgo_tpu_torch/csrc/block_mm.cu", None, k3),
         # Not a port of a Pallas kernel: the flag kernel of the captured
         # step's conditional nodes, the device-side lax.cond / while_loop
         # of the JAX package's one-dispatch step.

@@ -30,7 +30,7 @@ from dpgo_tpu_torch.chordal import distributed_chordal_init
 from dpgo_tpu_torch.graph import build_multigraph
 from dpgo_tpu_torch.io.g2o import Measurements
 from dpgo_tpu_torch.losses import Loss
-from dpgo_tpu_torch.manifold import proj_tangent
+from dpgo_tpu_torch.manifold import block_mm, proj_tangent
 from dpgo_tpu_torch.objective import (EdgeData, SplitEdges, evaluate_f,
                                       grad_norm)
 from dpgo_tpu_torch.problem import NodeProblem, NodeState, build_node_problems
@@ -411,7 +411,8 @@ class DPGOSolver:
         """Exact global (2 f, 2 |grad|) at the current own estimates."""
         t, R = self.gather_global(st)
         f = evaluate_f(self.edges, t, R, self.loss, self.loss_reg)
-        g = grad_norm(self.edges, t, R, self.loss, self.loss_reg)
+        g = grad_norm(self.edges, t, R, self.loss, self.loss_reg,
+                      self.probs.kernels)
         return 2.0 * f, 2.0 * g
 
     def fused_stpcg_engaged(self) -> bool:
@@ -452,12 +453,12 @@ class DPGOSolver:
             elif probs.seg:
                 Rp = probs.precondition_R_seg(Rn)
             else:
-                Rp = Rn @ probs.precon_inv
+                Rp = block_mm(Rn, probs.precon_inv, probs.kernels)
             tp = probs.solve_mG00(tn, t_anchor=torch.zeros_like(tn),
                                   syncs=self.syncs)
             out_t = tp[node_of, local_of]
             out_R = Rp[node_of, local_of]
-            return out_t, proj_tangent(x[1], out_R)
+            return out_t, proj_tangent(x[1], out_R, probs.kernels)
 
         return precondition
 
@@ -561,7 +562,8 @@ class DPGOSolver:
                 levels.append((dev(seg[rows]), m,
                                (dev(piece[rows]), dev(seg[cut]))))
             precon = polish_mod.multilevel_rigid_preconditioner(
-                model0.hess_vp, nabla, x0, levels, precon, reduce=reduce)
+                model0.hess_vp, nabla, x0, levels, precon, reduce=reduce,
+                kernels=self.probs.kernels)
         model = make_model(precon)
         stats = {"route": "graph" if graph else "host"}
         if graph:

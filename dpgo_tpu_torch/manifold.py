@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from dpgo_tpu_torch.ops import block_mm_cuda
 from dpgo_tpu_torch.ops.polar_so3_cuda import polar_so3_cuda
 from dpgo_tpu_torch.ops.so3 import polar_so3
 
@@ -67,18 +68,38 @@ def sym(M: torch.Tensor) -> torch.Tensor:
     return 0.5 * (M + M.transpose(-1, -2))
 
 
+def block_mm(A: torch.Tensor, B: torch.Tensor, kernel: bool = True
+             ) -> torch.Tensor:
+    """Per-block A_i B_i of two [..., d, d] stacks. `kernel`: kernel K3
+    (`ops/block_mm_cuda.py`: the CUDA kernel on a CUDA tensor, the plain
+    product on a CPU one); False: the plain product on any device (the
+    kernel-vs-plain comparison on the card)."""
+    return block_mm_cuda.block_mm(A, B) if kernel else A @ B
+
+
+def block_mv(A: torch.Tensor, v: torch.Tensor, kernel: bool = True
+             ) -> torch.Tensor:
+    """Per-block A_i v_i: [..., d, d] x [..., d] -> [..., d]; `kernel` as
+    in block_mm."""
+    if kernel:
+        return block_mm_cuda.block_mv(A, v)
+    return (A @ v[..., None])[..., 0]
+
+
 def sym_block_diag_product(A: torch.Tensor, B: torch.Tensor,
-                           C: torch.Tensor) -> torch.Tensor:
+                           C: torch.Tensor, kernel: bool = True
+                           ) -> torch.Tensor:
     """Per-block A_i @ sym(B_i^T C_i) (SOdProduct::SymBlockDiagProduct in
-    true-rotation storage)."""
-    S = sym(B.transpose(-1, -2) @ C)
-    return A @ S
+    true-rotation storage); `kernel` as in block_mm."""
+    S = sym(block_mm(B.transpose(-1, -2), C, kernel))
+    return block_mm(A, S, kernel)
 
 
-def proj_tangent(R: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+def proj_tangent(R: torch.Tensor, V: torch.Tensor, kernel: bool = True
+                 ) -> torch.Tensor:
     """Project ambient V onto the tangent space of SO(d)^n at R:
-    P = V - R sym(R^T V)."""
-    return V - sym_block_diag_product(R, R, V)
+    P = V - R sym(R^T V); `kernel` as in block_mm."""
+    return V - sym_block_diag_product(R, R, V, kernel)
 
 
 def retract(R: torch.Tensor, V: torch.Tensor, kernel: bool = True

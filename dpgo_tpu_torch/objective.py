@@ -109,17 +109,18 @@ def evaluate_euclidean_grad(edges: EdgeData, t: torch.Tensor, R: torch.Tensor,
 
 def evaluate_riemannian_grad(edges: EdgeData, t: torch.Tensor,
                              R: torch.Tensor, loss: Loss = Loss.TRIVIAL,
-                             loss_reg: float = 1.0):
+                             loss_reg: float = 1.0, kernel: bool = True):
     """Riemannian gradient: translation part unchanged, rotation part
-    projected onto the tangent space of SO(d)^n."""
+    projected onto the tangent space of SO(d)^n (its block products
+    through kernel K3 where `kernel` holds, manifold.block_mm)."""
     Df_t, Df_R = evaluate_euclidean_grad(edges, t, R, loss, loss_reg)
-    return Df_t, proj_tangent(R, Df_R)
+    return Df_t, proj_tangent(R, Df_R, kernel)
 
 
 def grad_norm(edges: EdgeData, t: torch.Tensor, R: torch.Tensor,
-              loss: Loss = Loss.TRIVIAL, loss_reg: float = 1.0
-              ) -> torch.Tensor:
-    g_t, g_R = evaluate_riemannian_grad(edges, t, R, loss, loss_reg)
+              loss: Loss = Loss.TRIVIAL, loss_reg: float = 1.0,
+              kernel: bool = True) -> torch.Tensor:
+    g_t, g_R = evaluate_riemannian_grad(edges, t, R, loss, loss_reg, kernel)
     return torch.sqrt(torch.sum(g_t * g_t) + torch.sum(g_R * g_R))
 
 

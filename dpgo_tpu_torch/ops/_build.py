@@ -38,6 +38,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of each entry point (all return cudaError_t as int).
 _SIGNATURES = {
+    # (A, a batch / row / column strides, B, its strides, C, n, d, dtype,
+    #  mv, int64 counter, bool live, stream)
+    "dpgo_block_mm": [_P, ctypes.c_longlong, _I, _I, _P, ctypes.c_longlong,
+                      _I, _I, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _P],
     # (A, R, n, stream), float32 and float64
     "dpgo_polar_so3": [_P, _P, ctypes.c_longlong, _P],
     "dpgo_polar_so3_f64": [_P, _P, ctypes.c_longlong, _P],

@@ -48,8 +48,8 @@ import torch
 
 from dpgo_tpu_torch.graph import MultiGraph, node_range
 from dpgo_tpu_torch.losses import Loss, loss_value, loss_weight
-from dpgo_tpu_torch.manifold import (proj_tangent, project_sod,
-                                     sym_block_diag_product)
+from dpgo_tpu_torch.manifold import (block_mm, block_mv, proj_tangent,
+                                     project_sod, sym_block_diag_product)
 from dpgo_tpu_torch.ops import stpcg_cuda
 from dpgo_tpu_torch.ops.stpcg import sel
 from dpgo_tpu_torch.utils import (HostSyncs, bounded_while, resolve_device,
@@ -59,11 +59,6 @@ from dpgo_tpu_torch.utils import (HostSyncs, bounded_while, resolve_device,
 def _nsum(x: torch.Tensor) -> torch.Tensor:
     """Sum over everything but the leading node axis: [N, ...] -> [N]."""
     return x.reshape(x.shape[0], -1).sum(1)
-
-
-def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Batched [..., a, b] @ [..., b] -> [..., a]."""
-    return (M @ v[..., None])[..., 0]
 
 
 def _edge_sq(u: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
@@ -183,9 +178,9 @@ class NodeProblem:
     seg_row: torch.Tensor     # [N, npair]
     seg_col: torch.Tensor     # [N, npair]
 
-    # Route the SO(3) projections and the fused STPCG through the CUDA
-    # kernels; False runs their plain torch versions on any device (the
-    # kernel-vs-plain comparison on the card).
+    # Route the SO(3) projections, the fused STPCG and the d x d block
+    # products through the CUDA kernels; False runs their plain torch
+    # versions on any device (the kernel-vs-plain comparison on the card).
     kernels: bool = True
 
     seg: bool = False
@@ -234,6 +229,15 @@ class NodeProblem:
         """Per-node gather x[a, idx[a]]: [N, n, ...], [N, m] -> [N, m, ...]"""
         return x[self._b, idx]
 
+    def _mm(self, A, B):
+        """Per-block A_i B_i of [N, m, d, d] stacks (kernel K3 where
+        `kernels` holds)."""
+        return block_mm(A, B, self.kernels)
+
+    def _mv(self, A, v):
+        """Per-block A_i v_i: [N, m, d, d] x [N, m, d] -> [N, m, d]."""
+        return block_mv(A, v, self.kernels)
+
     def _scatter(self, flat_idx, vals):
         """Per-node scatter-add of vals [N, m, ...] into [N, n0, ...]."""
         N, n0 = self.num_nodes, self._n0()
@@ -246,8 +250,9 @@ class NodeProblem:
         """Intra-edge residuals (sqrt-weighted): r_t [N, m0, d],
         r_R [N, m0, d, d]."""
         Ri = self._g(R, self.a_i)
-        rt = self._g(t, self.a_i) + _mv(Ri, self.a_t) - self._g(t, self.a_j)
-        rR = Ri @ self.a_R - self._g(R, self.a_j)
+        rt = self._g(t, self.a_i) + self._mv(Ri, self.a_t) \
+            - self._g(t, self.a_j)
+        rR = self._mm(Ri, self.a_R) - self._g(R, self.a_j)
         return (torch.sqrt(self.a_tau)[..., None] * rt,
                 torch.sqrt(self.a_kap)[..., None, None] * rR)
 
@@ -259,8 +264,9 @@ class NodeProblem:
         to = self._g(state.th, self.e_slot)
         Ro = self._g(state.Rh, self.e_slot)
         u_s, E_s = self._self_half(state.t, state.R)
-        u_o = torch.where(self._sel, -st * to, st * (to + _mv(Ro, self.e_t)))
-        E_o = torch.where(self._selm, -sk * Ro, sk * (Ro @ self.e_R))
+        u_o = torch.where(self._sel, -st * to,
+                          st * (to + self._mv(Ro, self.e_t)))
+        E_o = torch.where(self._selm, -sk * Ro, sk * self._mm(Ro, self.e_R))
         return (u_s, E_s), (u_o, E_o)
 
     def apply_A_self_T(self, u, E):
@@ -273,7 +279,7 @@ class NodeProblem:
         dR = torch.where(
             self._selm,
             st[..., None] * u[..., :, None] * self.e_t[..., None, :]
-            + sk * (E @ self.e_R.transpose(-1, -2)),
+            + sk * self._mm(E, self.e_R.transpose(-1, -2)),
             -sk * E)
         return self._scatter(self._fs, dt), self._scatter(self._fs, dR)
 
@@ -285,8 +291,9 @@ class NodeProblem:
         sk = torch.sqrt(self.e_kap)[..., None, None]
         ts = self._g(t, self.e_self)
         Rs = self._g(R, self.e_self)
-        u_s = torch.where(self._sel, st * (ts + _mv(Rs, self.e_t)), -st * ts)
-        E_s = torch.where(self._selm, sk * (Rs @ self.e_R), -sk * Rs)
+        u_s = torch.where(self._sel, st * (ts + self._mv(Rs, self.e_t)),
+                          -st * ts)
+        E_s = torch.where(self._selm, sk * self._mm(Rs, self.e_R), -sk * Rs)
         return u_s, E_s
 
     def _sw(self, x: torch.Tensor) -> torch.Tensor:
@@ -423,14 +430,14 @@ class NodeProblem:
 
         (rtZ, rRZ), (usZ, EsZ) = zres
         Ri = self._g(xR, self.a_i)
-        Ri_at = _mv(Ri, self.a_t)
+        Ri_at = self._mv(Ri, self.a_t)
         rRX = torch.sqrt(self.a_kap)[..., None, None] * (
-            Ri @ self.a_R - self._g(xR, self.a_j))
+            self._mm(Ri, self.a_R) - self._g(xR, self.a_j))
         st = torch.sqrt(self.e_tau)[..., None]
         sk = torch.sqrt(self.e_kap)[..., None, None]
         Rs = self._g(xR, self.e_self)
-        EsX = torch.where(self._selm, sk * (Rs @ self.e_R), -sk * Rs)
-        Rs_et = _mv(Rs, self.e_t)
+        EsX = torch.where(self._selm, sk * self._mm(Rs, self.e_R), -sk * Rs)
+        Rs_et = self._mv(Rs, self.e_t)
         dqR = sq_diff(rRX, rRZ) + self.xi * sq_diff(xR, zR) + 2.0 * torch.sum(
             self._sw(torch.sum((EsX - EsZ) * (EsX + EsZ), (-1, -2))), -1)
         g_t, g_R = g
@@ -469,7 +476,7 @@ class NodeProblem:
         gradient at `state`."""
         if Df is None:
             Df = self.euclidean_Df(state, self.surrogate_g(state))
-        return Df[0], proj_tangent(state.R, Df[1])
+        return Df[0], proj_tangent(state.R, Df[1], self.kernels)
 
     def q_gap(self, dstate: NodeState) -> torch.Tensor:
         """1/2 <Q dZ, dZ> = -1/4 sum_inter |A_tail dZ_tail - A_head dZ_head|^2
@@ -506,10 +513,10 @@ class NodeProblem:
         Tv = self.diagT_inv[..., None]
         # (N^T v)[p] = v_p nvec_p^T (outer product into R-space).
         NTv = (Tv * Df_t)[..., :, None] * self.nvec[..., None, :]
-        C = Df_R - NTv - z_R @ self.W
+        C = Df_R - NTv - self._mm(z_R, self.W)
         R_new = project_sod(-C, self.kernels)
         dR = R_new - z_R
-        t_new = z_t - Tv * _mv(dR, self.nvec) - Tv * Df_t
+        t_new = z_t - Tv * self._mv(dR, self.nvec) - Tv * Df_t
         return t_new, R_new
 
     # ----------------------------------------- segment translation solves
@@ -657,11 +664,11 @@ class NodeProblem:
         intra e: row t_i += tau M_i t~ ; row t_j -= tau M_i t~
         inter self-tail e: row t_self += 2 tau M_self t~
         """
-        v = self.a_tau[..., None] * _mv(self._g(M, self.a_i), self.a_t)
+        v = self.a_tau[..., None] * self._mv(self._g(M, self.a_i), self.a_t)
         out = self._scatter(self._fi, v) + self._scatter(self._fj, -v)
         w = torch.where(self._sel,
                         (2.0 * self._sw(self.e_tau))[..., None]
-                        * _mv(self._g(M, self.e_self), self.e_t),
+                        * self._mv(self._g(M, self.e_self), self.e_t),
                         0.0)
         return out + self._scatter(self._fs, w)
 
@@ -691,16 +698,17 @@ class NodeProblem:
         plus xi M.
         """
         Mi = self._g(M, self.a_i)
-        rR = Mi @ self.a_R - self._g(M, self.a_j)
-        blk_i = self.a_kap[..., None, None] * (rR @ self.a_R.transpose(-1, -2)) \
-            + self.a_tau[..., None, None] * _mv(Mi, self.a_t)[..., :, None] \
-            * self.a_t[..., None, :]
+        rR = self._mm(Mi, self.a_R) - self._g(M, self.a_j)
+        blk_i = self.a_kap[..., None, None] \
+            * self._mm(rR, self.a_R.transpose(-1, -2)) \
+            + self.a_tau[..., None, None] \
+            * self._mv(Mi, self.a_t)[..., :, None] * self.a_t[..., None, :]
         blk_j = -self.a_kap[..., None, None] * rR
         Ms = self._g(M, self.e_self)
         tail_extra = torch.where(
             self._selm,
             (2.0 * self._sw(self.e_tau))[..., None, None]
-            * _mv(Ms, self.e_t)[..., :, None] * self.e_t[..., None, :],
+            * self._mv(Ms, self.e_t)[..., :, None] * self.e_t[..., None, :],
             0.0)
         out = self._scatter(self._fi, blk_i) + self._scatter(self._fj, blk_j)
         out = out + self._scatter(
@@ -714,7 +722,7 @@ class NodeProblem:
         u = torch.sqrt(self.a_tau)[..., None] * rt
         E = torch.sqrt(self.a_kap)[..., None, None] * rR
         Gi = u[..., :, None] * self.a_t[..., None, :] \
-            + E @ self.a_R.transpose(-1, -2)
+            + self._mm(E, self.a_R.transpose(-1, -2))
         Df_t = self._scatter(self._fi, u) - self._scatter(self._fj, u)
         Df_R = self._scatter(self._fi, Gi) - self._scatter(self._fj, E)
         # inter: 2 w_bar A_self^T A_self x_self.
@@ -746,12 +754,12 @@ class NodeProblem:
         rhs = self.mG01_apply(Rdot)
         tdot = -self.solve_mG00(rhs, t_anchor=torch.zeros_like(rhs))
         E = self.mG10_apply(tdot) + self.mG11_apply(Rdot)
-        E = E - sym_block_diag_product(Rdot, R, nablaR)
-        return proj_tangent(R, E)
+        E = E - sym_block_diag_product(Rdot, R, nablaR, self.kernels)
+        return proj_tangent(R, E, self.kernels)
 
     def precondition(self, R, V):
         """Block-Jacobi preconditioner + tangent projection."""
-        return proj_tangent(R, V @ self.precon_inv)
+        return proj_tangent(R, self._mm(V, self.precon_inv), self.kernels)
 
     # ------------------------------------------------ dense operators
 
@@ -768,9 +776,9 @@ class NodeProblem:
         Ab = A.reshape(N, -1, d, d)
         Bb = B.reshape(N, -1, d, d)
         Cb = C.reshape(N, -1, d, d)
-        S = Bb @ Cb.transpose(-1, -2)
+        S = self._mm(Bb, Cb.transpose(-1, -2))
         S = 0.5 * (S + S.transpose(-1, -2))
-        return (S @ Ab).reshape(A.shape)
+        return self._mm(S, Ab).reshape(A.shape)
 
     def proj_tall(self, Q, V):
         return V - self.sym_block_tall(Q, Q, V)
@@ -815,7 +823,7 @@ class NodeProblem:
         blocks act on R-storage from the right, which in Q = R^T storage is
         a left-multiply by the (symmetric) block."""
         N, d = V.shape[0], self.d
-        P = (self.precon_inv @ V.reshape(N, -1, d, d)).reshape(V.shape)
+        P = self._mm(self.precon_inv, V.reshape(N, -1, d, d)).reshape(V.shape)
         return self.proj_tall(Q, P)
 
     def recover_translations_tall(self, Q, g_t, t_anchor=None):

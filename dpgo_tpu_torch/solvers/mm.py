@@ -37,7 +37,7 @@ import dataclasses
 import torch
 
 from dpgo_tpu_torch.losses import Loss
-from dpgo_tpu_torch.manifold import (proj_tangent, project_sod,
+from dpgo_tpu_torch.manifold import (block_mm, proj_tangent, project_sod,
                                      sym_block_diag_product)
 from dpgo_tpu_torch.ops.stpcg import sel, stpcg_fused_reference
 from dpgo_tpu_torch.ops.stpcg_cuda import stpcg_fused
@@ -280,7 +280,7 @@ def update_state(probs: NodeProblem, st: MMState, opts: MMOptions,
         f = fobj + probs.p_form(Z)
         zres = probs.anchor_residuals(Z.t, Z.R)
     Df = probs.euclidean_Df(Z, g=g)
-    grad_t, grad_R = Df[0], proj_tangent(Z.R, Df[1])
+    grad_t, grad_R = Df[0], proj_tangent(Z.R, Df[1], probs.kernels)
     gradFnorm = torch.sqrt(_nsum(grad_t * grad_t) + _nsum(grad_R * grad_R))
     g_t, g_R = g
     Df_t, Df_R = Df
@@ -366,7 +366,7 @@ def _make_tnt_model(p: NodeProblem, g_t, g_R, f, t_anchor=None,
 
     def grad_and_nabla(x):
         nabla = p.reduced_euclidean_grad(x[0], x[1], g_R)
-        return proj_tangent(x[1], nabla), nabla
+        return proj_tangent(x[1], nabla, p.kernels), nabla
 
     def hess_vp(x, nabla, v):
         return p.reduced_hessian_vp(x[1], nabla, v)
@@ -411,17 +411,17 @@ def _make_tnt_model_coupled(p: NodeProblem, g_t, g_R, anchor) -> TNTModel:
     def grad_and_nabla(x):
         Gt, GR = p.G_apply(x[0], x[1])
         nt, nR = Gt + g_t, GR + g_R
-        return (nt, proj_tangent(x[1], nR)), (nt, nR)
+        return (nt, proj_tangent(x[1], nR, p.kernels)), (nt, nR)
 
     def hess_vp(x, nabla, v):
         # G is linear, so G_apply(v) is the Euclidean Hessian action.
         Ht, HR = p.G_apply(v[0], v[1])
-        HR = HR - sym_block_diag_product(v[1], x[1], nabla[1])
-        return Ht, proj_tangent(x[1], HR)
+        HR = HR - sym_block_diag_product(v[1], x[1], nabla[1], p.kernels)
+        return Ht, proj_tangent(x[1], HR, p.kernels)
 
     def precondition(x, v):
         return (p._precondition_t_seg(v[0]),
-                proj_tangent(x[1], p.precondition_R_seg(v[1])))
+                proj_tangent(x[1], p.precondition_R_seg(v[1]), p.kernels))
 
     def retract(x, h):
         return x[0] + h[0], project_sod(x[1] + h[1], p.kernels)
@@ -479,7 +479,8 @@ def _make_tnt_model_dense(p: NodeProblem, g_t, g_Q, t_anchor, anchor,
             Q = x[1]
             return fkern(p.Hred_d, p.precon_dense, grad.contiguous(),
                          pgrad.contiguous(), Q.contiguous(),
-                         _curvature_blocks(Q, nabla), Delta.contiguous(),
+                         _curvature_blocks(Q, nabla, p.kernels),
+                         Delta.contiguous(),
                          active.contiguous(),
                          max_iters=tnt_params.max_tCG_iterations,
                          kappa_fgr=tnt_params.kappa_fgr,
@@ -490,10 +491,12 @@ def _make_tnt_model_dense(p: NodeProblem, g_t, g_Q, t_anchor, anchor,
                     retract=retract, fused_stpcg=fused)
 
 
-def _curvature_blocks(Q, nabla):
-    """K1's curvature blocks sym(Q_p nabla_p^T) in tall storage [N, nd, d]."""
+def _curvature_blocks(Q, nabla, kernel: bool):
+    """K1's curvature blocks sym(Q_p nabla_p^T) in tall storage [N, nd, d]
+    (the block products through kernel K3 where `kernel` holds)."""
     N, nd, d = Q.shape
-    Sb = Q.reshape(N, -1, d, d) @ nabla.reshape(N, -1, d, d).transpose(-1, -2)
+    Sb = block_mm(Q.reshape(N, -1, d, d),
+                  nabla.reshape(N, -1, d, d).transpose(-1, -2), kernel)
     return (0.5 * (Sb + Sb.transpose(-1, -2))).reshape(N, nd, d)
 
 
@@ -508,7 +511,7 @@ def stpcg_inputs(p: NodeProblem, st: MMState):
     grad = p.proj_tall(Q, nabla).contiguous()
     pgrad = p.precondition_tall(Q, grad).contiguous()
     return (p.Hred_d, p.precon_dense, grad, pgrad, Q,
-            _curvature_blocks(Q, nabla))
+            _curvature_blocks(Q, nabla, p.kernels))
 
 
 def resolve_preconditioner(probs: NodeProblem, opts: MMOptions) -> str:

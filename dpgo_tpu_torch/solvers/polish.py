@@ -145,18 +145,19 @@ def split_tnt_model(se: SplitEdges, exchange=None, reduce=None,
     def grad_and_nabla(x):
         te, Re = with_halo(exchange, *x)
         Dt, DR = split_euclidean_grad(se, te, Re, loss, loss_reg)
-        return (Dt, proj_tangent(x[1], DR)), (Dt, DR, te, Re)
+        return (Dt, proj_tangent(x[1], DR, kernels)), (Dt, DR, te, Re)
 
     def hess_vp(x, nabla, v):
         vte, vRe = with_halo(exchange, *v)
         Ht, HR = split_hess_vp(se, nabla[2], nabla[3], vte, vRe, loss,
                                loss_reg)
-        HR = HR - sym_block_diag_product(v[1], x[1], nabla[1])
-        return Ht, proj_tangent(x[1], HR)
+        HR = HR - sym_block_diag_product(v[1], x[1], nabla[1], kernels)
+        return Ht, proj_tangent(x[1], HR, kernels)
 
     if precondition is None:
         precondition = _jacobi_precondition(
-            se.edges, se.num_own + se.num_halo, rows=se.num_own)
+            se.edges, se.num_own + se.num_halo, rows=se.num_own,
+            kernels=kernels)
 
     def retract(x, h):
         return x[0] + h[0], project_sod(x[1] + h[1], kernels)
@@ -172,7 +173,7 @@ def split_tnt_model(se: SplitEdges, exchange=None, reduce=None,
 
 
 def _jacobi_precondition(edges: EdgeData, num_poses: int,
-                         rows: int | None = None):
+                         rows: int | None = None, kernels: bool = True):
     """Per-pose Jacobi preconditioner from stiffness scalars: translations
     see the weighted-Laplacian diagonal sum(tau); rotations the
     connection-Laplacian diagonal scale kappa (+ tau |t~|^2 on the i side).
@@ -192,7 +193,7 @@ def _jacobi_precondition(edges: EdgeData, num_poses: int,
 
     def precondition(x, v):
         return (v[0] / wt[:, None],
-                proj_tangent(x[1], v[1] / wR[:, None, None]))
+                proj_tangent(x[1], v[1] / wR[:, None, None], kernels))
 
     return precondition
 
@@ -206,7 +207,8 @@ def global_tnt_model(edges: EdgeData, loss: Loss = Loss.TRIVIAL,
 
     `precondition(x, v) -> v'` overrides the built-in per-pose Jacobi
     preconditioner. `kernels` routes the retraction's SO(3) projection
-    through kernel K2 (False: its plain version on any device)."""
+    through kernel K2 and the tangent projections' block products through
+    kernel K3 (False: their plain versions on any device)."""
     P = (num_poses if num_poses is not None
          else int(torch.maximum(edges.i.max(), edges.j.max())) + 1)
     se = SplitEdges.build(edges, np.zeros(P, np.int64), 0, 1)
@@ -340,12 +342,14 @@ def _rigid_level(hess_vp_fn, nabla, x0, block_of, num_blocks,
 
 
 def coarse_rigid_preconditioner(hess_vp_fn, nabla, x0, node_of, num_nodes,
-                                base_precon, reg: float = 1e-8):
+                                base_precon, reg: float = 1e-8,
+                                kernels: bool = True):
     """Two-level preconditioner: block solve + per-node rigid coarse
     correction, applied additively:
       M v = M_block v + P A_c^+ P^T v   (SPD on the gauge complement)."""
     return multilevel_rigid_preconditioner(
-        hess_vp_fn, nabla, x0, [(node_of, num_nodes)], base_precon, reg)
+        hess_vp_fn, nabla, x0, [(node_of, num_nodes)], base_precon, reg,
+        kernels=kernels)
 
 
 def contiguous_segments(num_poses: int, num_segments: int,
@@ -360,7 +364,7 @@ def contiguous_segments(num_poses: int, num_segments: int,
 
 def multilevel_rigid_preconditioner(hess_vp_fn, nabla, x0, levels,
                                     base_precon, reg: float = 1e-8,
-                                    reduce=None):
+                                    reduce=None, kernels: bool = True):
     """Additive multilevel (BPX-style) preconditioner: block solve + rigid
     coarse corrections at every granularity in `levels`, a sequence of
     (block_of [P] int, num_blocks). Corridor graphs have slow bending modes
@@ -370,7 +374,9 @@ def multilevel_rigid_preconditioner(hess_vp_fn, nabla, x0, levels,
 
     A level may carry its pieces as a third element (see `_rigid_level`).
     `reduce` (the pose axis split over processes) sums every level's
-    restriction over the processes in one collective per application."""
+    restriction over the processes in one collective per application;
+    `kernels` routes the final tangent projection's block products through
+    kernel K3."""
     lvls = [_rigid_level(hess_vp_fn, nabla, x0, lvl[0], lvl[1], reg,
                          reduce=reduce, pieces=lvl[2] if len(lvl) > 2
                          else None)
@@ -386,7 +392,7 @@ def multilevel_rigid_preconditioner(hess_vp_fn, nabla, x0, levels,
             dt, dR = prolong(coef)
             ct = ct + dt
             cR = cR + dR
-        return ct, proj_tangent(x[1], cR)
+        return ct, proj_tangent(x[1], cR, kernels)
 
     return precondition
 

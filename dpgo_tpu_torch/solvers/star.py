@@ -92,7 +92,7 @@ def update_star(probs: NodeProblem, st: StarState, opts: MMOptions,
     Nesterov gamma."""
     g, f, fobj, zres = probs.surrogate_g_f_fobj_res(st.Z)
     Df = probs.euclidean_Df(st.Z, g=g)
-    grad_t, grad_R = Df[0], proj_tangent(st.Z.R, Df[1])
+    grad_t, grad_R = Df[0], proj_tangent(st.Z.R, Df[1], probs.kernels)
     gradFnorm = torch.sqrt(_nsum(grad_t * grad_t) + _nsum(grad_R * grad_R))
 
     if opts.accelerated:

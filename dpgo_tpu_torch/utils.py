@@ -344,7 +344,8 @@ def fixed_loop(num_iters: int, body_fn, carry, name: str | None = None):
 class DeviceCounters:
     """Named int64 counters on the device, bumped by the step itself: a
     kernel wrapper where it launches its kernel ("polar_so3",
-    "polar_so3_f64", "stpcg", "stpcg_d2"), `bounded_while` per loop
+    "polar_so3_f64", "stpcg", "stpcg_d2"; kernel K3 bumps "block_mm"
+    inside its own launch), `bounded_while` per loop
     ("seg_cg", "stpcg", "tnt": `.entries`, `.trips`), `fixed_loop` per loop
     (DChordal's "dchordal.reduced_R" and the like), the master tests of
     AMM-PGO* through `bump_tensor`. Under "trace" a bump counts only where
@@ -364,7 +365,9 @@ class DeviceCounters:
         return name, dev
 
     @classmethod
-    def bump(cls, name: str, device, by=1) -> None:
+    def tensor(cls, name: str, device) -> torch.Tensor:
+        """The counter's int64 tensor on `device`, made at its first use
+        (for a kernel that bumps it inside its own launch)."""
         key = cls._key(name, device)
         t = cls._t.get(key)
         if t is None:
@@ -373,7 +376,11 @@ class DeviceCounters:
                                    "inside a graph capture")
             t = cls._t[key] = torch.zeros((), dtype=torch.int64,
                                           device=key[1])
-        bump_tensor(t, by)
+        return t
+
+    @classmethod
+    def bump(cls, name: str, device, by=1) -> None:
+        bump_tensor(cls.tensor(name, device), by)
 
     @classmethod
     def read(cls, name: str) -> int:
@@ -397,6 +404,12 @@ class DeviceCounters:
                 t.copy_(snap[k])
             else:
                 t.zero_()
+
+
+def live_flag() -> torch.Tensor | None:
+    """The 0-d bool flag of the branch or trip being run on the trace or
+    warm route (the conjunction of the enclosing ones), None elsewhere."""
+    return _Route.live
 
 
 def bump_tensor(t: torch.Tensor, by=1) -> None:

@@ -1224,3 +1224,198 @@ def test_sqrt_on_the_card_is_correctly_rounded(dev, rng, dtype):
         str(dtype).removeprefix("torch."))
     got = torch.sqrt(torch.as_tensor(x, device=dev)).cpu().numpy()
     np.testing.assert_array_equal(got, np.sqrt(x))
+
+
+# The rim cells' block counts per node batch (16 nodes): intra edges m0,
+# inter edges m1, poses n0 (pgobench's rim3d_10k_16n).
+RIM_BLOCKS = (24848, 14048, 10208)
+
+
+def _k3_operands(rng, n, d, dtype, dev, form):
+    """Operands of one K3 form ("nn", "nt", "tn", "tt" or "mv") on the card
+    (transposes as views) and the same on the CPU in float64."""
+    A = torch.as_tensor(rng.normal(size=(n, d, d))).to(dtype)
+    B = torch.as_tensor(rng.normal(size=(n, d) if form == "mv"
+                                   else (n, d, d))).to(dtype)
+    if form in ("tn", "tt"):
+        A = A.transpose(-1, -2)
+    if form in ("nt", "tt"):
+        B = B.transpose(-1, -2)
+    return A.to(dev), B.to(dev), A.double(), B.double()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RIM_BLOCKS + (1, 33, 64, 65))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [2, 3])
+def test_block_mm_kernel_matches_plain(dev, rng, d, dtype, n):
+    """K3 in every form (nn, nt, tn, tt as transpose views, mv) against its
+    plain twin (the torch product) computed in float64 on the CPU: within
+    2e-6 of the blocks' scale in float32 (a d-term FMA chain), 1e-14 in
+    float64; one launch per call, counted on the device."""
+    from dpgo_tpu_torch.ops import block_mm_cuda
+    from dpgo_tpu_torch.utils import DeviceCounters
+    tol = 2e-6 if dtype == torch.float32 else 1e-14
+    for form in ("nn", "nt", "tn", "tt", "mv"):
+        A, B, A64, B64 = _k3_operands(rng, n, d, dtype, dev, form)
+        launches = block_mm_cuda.Launches.count
+        dc = DeviceCounters.read("block_mm")
+        if form == "mv":
+            out = block_mm_cuda.block_mv(A, B)
+            ref = (A64 @ B64[..., None])[..., 0]
+        else:
+            out = block_mm_cuda.block_mm(A, B)
+            ref = A64 @ B64
+        assert out.dtype == dtype and out.shape == ref.shape
+        assert block_mm_cuda.Launches.count == launches + 1
+        assert DeviceCounters.read("block_mm") == dc + 1
+        np.testing.assert_allclose(out.double().cpu().numpy(), ref.numpy(),
+                                   rtol=0, atol=tol * d, err_msg=form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["broadcast", "strided", "offset",
+                                    "batched", "broadcast_lead"])
+def test_block_mm_kernel_other_layouts(dev, rng, layout):
+    """K3 on operands read straight from global memory (a broadcast block,
+    a strided view of a larger stack), on a stack that starts off the
+    16-byte grid (the scalar staging path), on [N, m, 3, 3] stacks with a
+    leading node axis, and on a [m, 3, 3] stack broadcast over that axis
+    (copied first): equal to the torch product on the card within 2e-6."""
+    from dpgo_tpu_torch.ops import block_mm_cuda
+    f = dict(dtype=torch.float32, device=dev)
+    n = 14048
+    B = torch.as_tensor(rng.normal(size=(n, 3, 3)), **f)
+    if layout == "broadcast":
+        A = torch.as_tensor(rng.normal(size=(1, 3, 3)), **f).expand(n, 3, 3)
+    elif layout == "strided":
+        A = torch.as_tensor(rng.normal(size=(n, 4, 4)), **f)[:, 1:, :3]
+    elif layout == "offset":
+        A = torch.as_tensor(rng.normal(size=(n * 9 + 1,)), **f)[1:]
+        A = A.view(n, 3, 3)
+    elif layout == "batched":
+        A = torch.as_tensor(rng.normal(size=(16, n // 16, 3, 3)), **f)
+        B = B.view(16, n // 16, 3, 3)
+    else:
+        A = torch.as_tensor(rng.normal(size=(16, n // 16, 3, 3)), **f)
+        B = B[:n // 16]
+    torch.testing.assert_close(block_mm_cuda.block_mm(A, B), A @ B,
+                               rtol=0, atol=2e-6 * 3)
+    v = B[..., 0]  # a strided vector operand
+    torch.testing.assert_close(block_mm_cuda.block_mv(A, v),
+                               (A @ v[..., None])[..., 0], rtol=0,
+                               atol=2e-6 * 3)
+
+
+@pytest.mark.cuda
+def test_block_mm_kernel_raises_on_what_it_does_not_take(dev):
+    """On the card K3 launches or raises: float16, d = 4 and operands on
+    two devices raise; a CPU operand beside a CUDA one too."""
+    from dpgo_tpu_torch.ops import block_mm_cuda
+    for A, B, err in (
+            (torch.zeros((4, 3, 3), dtype=torch.float16, device=dev),
+             torch.zeros((4, 3, 3), dtype=torch.float16, device=dev),
+             TypeError),
+            (torch.zeros((4, 4, 4), device=dev),
+             torch.zeros((4, 4, 4), device=dev), ValueError),
+            (torch.zeros((4, 3, 3), device=dev), torch.zeros((4, 3, 3)),
+             ValueError)):
+        with pytest.raises(err):
+            block_mm_cuda.block_mm(A, B)
+
+
+@pytest.mark.cuda
+def test_block_mm_kernel_in_a_cuda_graph(dev, rng):
+    """K3 captured into a CUDA graph (nn and mv at the rim cells' m0) and
+    replayed after its inputs change in place: each replay equals an
+    uncaptured launch on the new inputs bit for bit, and the device counter
+    moves by the captured launches at every replay."""
+    from dpgo_tpu_torch.ops import block_mm_cuda
+    from dpgo_tpu_torch.utils import DeviceCounters
+    n = RIM_BLOCKS[0]
+    f = dict(dtype=torch.float32, device=dev)
+    A = torch.as_tensor(rng.normal(size=(n, 3, 3)), **f)
+    B = torch.as_tensor(rng.normal(size=(n, 3, 3)), **f)
+    v = torch.as_tensor(rng.normal(size=(n, 3)), **f)
+    block_mm_cuda.block_mm(A, B)  # the counter and the library, uncaptured
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        C = block_mm_cuda.block_mm(A, B.transpose(-1, -2))
+        c = block_mm_cuda.block_mv(C, v)
+    for k in range(3):
+        A.copy_(torch.as_tensor(rng.normal(size=(n, 3, 3)), **f))
+        v.copy_(torch.as_tensor(rng.normal(size=(n, 3)), **f))
+        before = DeviceCounters.read("block_mm")
+        graph.replay()
+        torch.cuda.synchronize()
+        assert DeviceCounters.read("block_mm") == before + 2
+        C_ref = block_mm_cuda.block_mm(A, B.transpose(-1, -2))
+        assert torch.equal(C, C_ref)
+        assert torch.equal(c, block_mm_cuda.block_mv(C_ref, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tnt", [0, 10])
+def test_block_mm_counter_counts_the_launches_of_a_step(dev, tnt):
+    """The "block_mm" device counter over one step equals the K3 launches
+    of that step: on the host route it moves with the wrapper's launch
+    count, and the captured step replayed from the same state moves it by
+    the same number (K3 adds its own count inside each launch). Proximal
+    (tnt 0) and refined (tnt 10) steps on grid3D_synth, float32."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.ops import block_mm_cuda
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    from dpgo_tpu_torch.solvers.tnt import TNTParams
+    from dpgo_tpu_torch.utils import DeviceCounters
+    s = DPGOSolver(_grid3d(), num_nodes=4, dtype=torch.float32, device=dev,
+                   opts=MMOptions(accelerated=True,
+                                  tnt=TNTParams(max_iterations=tnt)))
+    st0 = s.initialize()
+    st1, _ = s.run_steps_eager(st0, 0, 3)
+    launches = block_mm_cuda.Launches.count
+    dc = DeviceCounters.read("block_mm")
+    s.run_steps_eager(st1, 3, 1)
+    per_step = block_mm_cuda.Launches.count - launches
+    assert per_step >= 10
+    assert DeviceCounters.read("block_mm") - dc == per_step
+    s.run_steps(st1, 3, 1)  # warm-up and capture
+    dc = DeviceCounters.read("block_mm")
+    launches = block_mm_cuda.Launches.count
+    s.run_steps(st1, 3, 1)
+    assert block_mm_cuda.Launches.count == launches  # replayed, not issued
+    assert DeviceCounters.read("block_mm") - dc == per_step
+
+
+@pytest.mark.cuda
+def test_block_mm_rim_proximal_kernels_match_plain(dev):
+    """A proximal AMM-PGO# run (no TNT) on artifacts/rim_synth.g2o, 16
+    nodes of 640 poses, float32, the shapes of the rim cells: 30 steps
+    through K2 and K3 against the same run through the plain versions
+    (per-step 2f within rtol 1e-4, as the slice's kernel test), with K3
+    launched on every step and neither on the plain run nor in its exact
+    global metrics (`_metrics`, the gradient's tangent projection)."""
+    from dpgo_tpu_torch.driver import DPGOSolver
+    from dpgo_tpu_torch.io.g2o import read_g2o_file
+    from dpgo_tpu_torch.ops import block_mm_cuda
+    from dpgo_tpu_torch.solvers.mm import MMOptions
+    from dpgo_tpu_torch.solvers.tnt import TNTParams
+    from dpgo_tpu_torch.utils import DeviceCounters, HostSyncs
+
+    meas = read_g2o_file(os.path.join(REPO, "artifacts", "rim_synth.g2o"))
+    s = DPGOSolver(meas, num_nodes=16, dtype=torch.float32, device=dev,
+                   opts=MMOptions(accelerated=True,
+                                  tnt=TNTParams(max_iterations=0)))
+    st0 = s.initialize()
+    dc = DeviceCounters.read("block_mm")
+    _, _, (f, _) = s.run_steps_history(st0, 0, 30)
+    assert DeviceCounters.read("block_mm") - dc >= 30 * 10
+    s.probs = dataclasses.replace(s.probs, kernels=False)
+    s.syncs = HostSyncs()
+    dc = DeviceCounters.read("block_mm")
+    stp, _, (fp, _) = s.run_steps_history(st0, 0, 30)
+    s._metrics(stp)
+    assert DeviceCounters.read("block_mm") == dc
+    f = f.cpu().numpy()
+    assert np.isfinite(f).all() and f[-1] < f[0]
+    np.testing.assert_allclose(f, fp.cpu().numpy(), rtol=1e-4)
