@@ -19,11 +19,14 @@ from pgobench import manifest
 from pgobench.reference import pgo as reference
 
 # The program's device counters read over a window (utils.DeviceCounters):
-# kernel launches, conditional-node flag launches, and the bounded loops'
-# entries and trips.
-COUNTERS = ("stpcg", "stpcg_d2", "polar_so3", "graph_cond", "tnt.entries",
-            "tnt.trips", "stpcg.entries", "stpcg.trips", "seg_cg.entries",
-            "seg_cg.trips")
+# kernel launches (K3's "block_mm" bumped inside its own launch),
+# conditional-node flag launches, the bounded loops' entries and trips, and
+# the sharded solvers' collectives, their bytes and host copies
+# (parallel/spmd.py, Collectives.COUNTERS).
+COUNTERS = ("stpcg", "stpcg_d2", "polar_so3", "block_mm", "graph_cond",
+            "tnt.entries", "tnt.trips", "stpcg.entries", "stpcg.trips",
+            "seg_cg.entries", "seg_cg.trips", "collectives",
+            "collective_bytes", "collective_host_copies")
 # Answers the check judges at most in one run: a window that runs more
 # (only a fault is that fast) is judged on a sample.
 MAX_JUDGED = 64
@@ -102,12 +105,12 @@ class Setup:
     spans: dict
 
 
-def setup(spec: CellSpec, seed: int, device) -> Setup:
-    """Graph, problem build, start and first update, then one step and one
-    answer: the warm-up and capture of everything the window runs."""
+def setup(spec: CellSpec, seed: int, device, ctx=None) -> Setup:
+    """Graph, problem build (`ctx.solver`), start and first update, then
+    one step and one answer: the warm-up and capture of everything the
+    window runs."""
     import torch
 
-    from dpgo_tpu_torch.driver import DPGOSolver
     from dpgo_tpu_torch.io.g2o import Measurements
     from dpgo_tpu_torch.solvers.mm import MMOptions
     from dpgo_tpu_torch.solvers.tnt import TNTParams
@@ -121,9 +124,10 @@ def setup(spec: CellSpec, seed: int, device) -> Setup:
                         num_poses=g["num_poses"], d=g["d"])
     opts = dict(spec.mix["options"])
     opts = MMOptions(tnt=TNTParams(**opts.pop("tnt", {})), **opts)
+    ctx = ctx or SOLO
     t0 = time.perf_counter()
-    solver = DPGOSolver(meas, cfg["num_nodes"], opts,
-                        dtype=getattr(torch, cfg["dtype"]), device=device)
+    solver = ctx.solver(meas, cfg["num_nodes"], opts,
+                        getattr(torch, cfg["dtype"]), device)
     sync(device)
     spans["build_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -132,15 +136,15 @@ def setup(spec: CellSpec, seed: int, device) -> Setup:
     spans["init_s"] = time.perf_counter() - t0
     s = Setup(graph=g, solver=solver, st0=st0,
               steps_per_solve=spec.cell["steps_per_solve"], spans=spans)
-    warm(s)
+    warm(s, ctx)
     return s
 
 
-def warm(s: Setup) -> None:
+def warm(s: Setup, ctx=None) -> None:
     """One step and one answer (captures the step on the card)."""
     t0 = time.perf_counter()
     st, _ = s.solver.run_steps(s.st0, 0, 1)
-    answer(s.solver, st)
+    (ctx or SOLO).answer(s.solver, st)
     s.spans["warm_s"] = time.perf_counter() - t0
     stats = s.solver.graph_stats() or {"warmup_s": 0.0, "capture_s": 0.0}
     s.spans["warmup_s"] = stats["warmup_s"]
@@ -152,6 +156,30 @@ def answer(solver, st):
     the program's own objective at it, the sum of the node objectives."""
     t, R = solver.gather_global(st)
     return t.cpu().numpy(), R.cpu().numpy(), float(st.fobj.sum())
+
+
+class Solo:
+    """A run in one process, on one device: it builds the single-process
+    solver, keeps every answer, decides alone when a window closes and is
+    traced. (sharded.Rank is the same for one rank of a process group.)"""
+
+    lead = True
+
+    def solver(self, meas, num_nodes: int, opts, dtype, device):
+        from dpgo_tpu_torch.driver import DPGOSolver
+        return DPGOSolver(meas, num_nodes, opts, dtype=dtype, device=device)
+
+    def answer(self, solver, st):
+        return answer(solver, st)
+
+    def agree(self, done: bool) -> bool:
+        return done
+
+    def barrier(self) -> None:
+        pass
+
+
+SOLO = Solo()
 
 
 def read_counters() -> dict:
@@ -175,9 +203,11 @@ class Window:
 
 
 def window(s: Setup, seconds: float, device,
-           max_solves: int | None = None) -> Window:
+           max_solves: int | None = None, ctx=None) -> Window:
     """Solves back to back until `seconds` have passed (or `max_solves`
-    are done); every answer is kept for the check."""
+    are done); every answer is kept for the check. After each solve the
+    lead's decision holds for every process of the run (`ctx.agree`)."""
+    ctx = ctx or SOLO
     solver, K = s.solver, s.steps_per_solve
     sync(device)
     reset_counters()
@@ -186,9 +216,10 @@ def window(s: Setup, seconds: float, device,
     t0 = time.perf_counter()
     while True:
         st, _ = solver.run_steps(s.st0, 0, K)
-        answers.append(answer(solver, st))
+        answers.append(ctx.answer(solver, st))
         marks.append(time.perf_counter())
-        if marks[-1] - t0 >= seconds or len(answers) == max_solves:
+        if ctx.agree(marks[-1] - t0 >= seconds
+                     or len(answers) == max_solves):
             break
     secs = time.perf_counter() - t0
     return Window(answers=answers, steps=K * len(answers), seconds=secs,
@@ -197,7 +228,7 @@ def window(s: Setup, seconds: float, device,
                   solve_s=np.diff([t0] + marks).tolist())
 
 
-def traced(s: Setup, solves: int, device):
+def traced(s: Setup, solves: int, device, ctx=None):
     """`solves` more solves under torch.profiler, recording the card's
     activity alone (kernels, copies, the CUDA API calls that launch them),
     not the host's operators; the per-kernel records still slow a solve
@@ -208,6 +239,7 @@ def traced(s: Setup, solves: int, device):
 
     from pgobench import trace as trace_mod
 
+    ctx = ctx or SOLO
     solver, K = s.solver, s.steps_per_solve
     sync(device)
     reset_counters()
@@ -218,7 +250,7 @@ def traced(s: Setup, solves: int, device):
         t0 = time.perf_counter()
         for _ in range(solves):
             st, _ = solver.run_steps(s.st0, 0, K)
-            answers.append(answer(solver, st))
+            answers.append(ctx.answer(solver, st))
             marks.append(time.perf_counter())
     counters = read_counters()
     return (trace_mod.from_profile(prof, card), answers, counters, K * solves,
@@ -280,34 +312,40 @@ def card_name(device) -> str:
 
 
 def measure(spec: CellSpec, seed: int, seconds: float, trace: bool, device,
-            plant=None) -> dict:
+            plant=None, ctx=None) -> dict:
     """One run: set-up, window, traced solves, the per-layer readings and
     the check (once the window has closed, the peak is read and the
     program's state is freed). `plant(setup)`, if given, breaks the timed
-    path after the set-up (the fault tests)."""
+    path after the set-up (the fault tests). `ctx` (Solo where None) is
+    the process's place in the run: the set-up closes once every process
+    of the run has passed `ctx.barrier`, and only the lead is traced,
+    reads the per-layer metrics and judges the answers; another process
+    runs the same solves untraced and returns no check."""
     import torch
 
+    ctx = ctx or SOLO
     t0 = time.perf_counter()
-    s = setup(spec, seed, device)
+    s = setup(spec, seed, device, ctx)
     if plant is not None:
         plant(s)
-        warm(s)
+        warm(s, ctx)
+    ctx.barrier()
     set_up = time.perf_counter()
     s.spans["setup_s"] = set_up - t0
     # Solves before the window, to let the card's pace settle: a process
     # that is not the first on its card often runs the same solves 5-12%
     # slower for its first seconds, then switches to the first's pace.
     # They are the window's own solves, already captured: no set-up.
-    window(s, spec.cell["warm_seconds"], device)
+    window(s, spec.cell["warm_seconds"], device, ctx=ctx)
     s.spans["settle_s"] = time.perf_counter() - set_up
-    w = window(s, seconds, device)
+    w = window(s, seconds, device, ctx=ctx)
     out = {"steps": w.steps, "seconds": w.seconds, "set_up": set_up,
            "solves": len(w.answers), "solve_s": w.solve_s,
            "counters": {k: v / w.steps for k, v in w.counters.items()}}
     answers = w.answers
-    if trace:
+    if trace and ctx.lead:
         tr, more, tcount, tsteps, tsolve_s = traced(
-            s, spec.cell["trace_solves"], device)
+            s, spec.cell["trace_solves"], device, ctx)
         answers = answers + more
         out["traced_solve_s"] = tsolve_s
         rd = Readings(card=card_name(device), num_nodes=s.solver.num_nodes,
@@ -322,6 +360,11 @@ def measure(spec: CellSpec, seed: int, seconds: float, trace: bool, device,
                 out["per_layer"][m["name"]] = value
         out.update(busy_s=tr.busy_s(), window_s=tr.window_s,
                    breakdown=tr.breakdown())
+    elif trace:
+        # The lead's traced solves, untraced here.
+        for _ in range(spec.cell["trace_solves"]):
+            st, _ = s.solver.run_steps(s.st0, 0, s.steps_per_solve)
+            ctx.answer(s.solver, st)
     out["peak"] = (torch.cuda.max_memory_allocated(device)
                    if device.type == "cuda" else 0)
     out["spans"] = s.spans
@@ -330,8 +373,9 @@ def measure(spec: CellSpec, seed: int, seconds: float, trace: bool, device,
     del s
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    out["check"] = judge(g, answers, spec.cell["limits"], seed,
-                         tnt_off(spec.mix, w.counters))
+    if ctx.lead:
+        out["check"] = judge(g, answers, spec.cell["limits"], seed,
+                             tnt_off(spec.mix, w.counters))
     return out
 
 
@@ -343,8 +387,11 @@ def result(spec: CellSpec, part: dict, trace: bool, t_start: float,
     check = part["check"]
     metrics = {}
     if not trace:
-        e2e = {"setup_s": part["set_up"] - t_start,
-               "iters_per_s": part["steps"] / part["seconds"]}
+        rate = part["steps"] / part["seconds"]
+        # A cell on several cards reports its rate under a name of its own:
+        # its runs spread wider than the bound of the cells on one card.
+        e2e = {"setup_s": part["set_up"] - t_start, "iters_per_s": rate,
+               "sharded_iters_per_s": rate}
         for m in spec.end_to_end:
             metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
     else:

@@ -58,6 +58,47 @@ def plant_altered(s, seed: int = 0) -> None:
     solver.gather_global = altered
 
 
+def plant_moved_on_rank(s, seed: int = 0, on: int = 2) -> None:
+    """A sharded solver's answer altered where one rank produces it: on
+    rank `on`, one of its own poses (drawn from the seed) moved by 1 m in
+    the state its share of the gather reads. The lead's answer holds the
+    move only where the gather brings in the other ranks' poses."""
+    solver = s.solver
+    if solver.comm.rank != on:
+        return
+    gather = solver.gather_global
+    rng = np.random.default_rng(seed)
+    node = int(rng.integers(solver.nodes_per_rank))
+    pose = int(rng.integers(solver.mg.n0[solver.node_lo + node]))
+
+    def moved(st):
+        t = st.Z.t.clone()
+        t[node, pose] += 1.0
+        return gather(st.replace(Z=st.Z.with_own(t, st.Z.R)))
+
+    solver.gather_global = moved
+
+
+def plant_rank_kept(s, on: int = 3) -> None:
+    """A sharded solver's rank `on` left out: every step there keeps its
+    nodes' own poses and objectives as they were. The step, its exchange
+    included, still runs, so the other ranks' collectives are met; every
+    rank captures its step again, so that the capture's warm-up step
+    meets the others' collectives too."""
+    solver = s.solver
+    solver._graph = None
+    if solver.comm.rank != on:
+        return
+    advance = solver._advance
+
+    def kept(probs, st, k):
+        nxt, probs2 = advance(probs, st, k)
+        return nxt.replace(Z=nxt.Z.with_own(st.Z.t, st.Z.R),
+                           fobj=st.fobj), probs2
+
+    solver._advance = kept
+
+
 def plant_no_tnt(s) -> None:
     """The refinement left out: every step's TNT runs no iteration, so the
     step is the proximal one alone (and K1 never launches)."""
@@ -104,3 +145,17 @@ CONTROLS = {"tf32": plant_tf32, "bf16": plant_bf16}
 REFINEMENT = {"no_tnt": plant_no_tnt}
 PLANTS = {"unchanged": plant_unchanged, "half_batch": plant_half_batch,
           "no_exchange": plant_no_exchange, "altered": plant_altered}
+# Faults that only a solver sharded over four ranks or more can have.
+SHARDED = {"moved_rank2": plant_moved_on_rank, "rank3_kept": plant_rank_kept}
+# Plants that draw from the run's seed.
+SEEDED = ("altered", "moved_rank2")
+
+
+def apply(name: str, s, seed: int) -> None:
+    """The plant or control `name` (PLANTS, SHARDED, CONTROLS,
+    REFINEMENT) on the run's Setup."""
+    plant = {**PLANTS, **SHARDED, **CONTROLS, **REFINEMENT}[name]
+    if name in SEEDED:
+        plant(s, seed)
+    else:
+        plant(s)

@@ -1,0 +1,13 @@
+"""tnt_trips_per_step of a cell on several cards, read on rank 0 by the same
+reader: a metric of its own because it moves that cell's own rate,
+sharded_iters_per_s."""
+
+from pgobench import manifest
+
+LAYER = "Iterate and TNT"
+UNIT = "trips/step"
+MOVES = "sharded_iters_per_s"
+
+
+def read(r):
+    return manifest.reader("tnt_trips_per_step").read(r)

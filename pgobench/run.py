@@ -59,8 +59,13 @@ def main(argv=None) -> int:
         print(f"pgobench: {args.workload} needs {spec.chips} CUDA card(s), "
               f"this machine has {n}; no result", file=sys.stderr)
         return 2
-    out = cell.run(spec, args.seed, args.seconds, bool(args.trace),
-                   torch.device("cuda", 0), T_START)
+    if spec.chips > 1:
+        from pgobench import sharded
+        out = sharded.run(spec, args.seed, args.seconds, bool(args.trace),
+                          T_START)
+    else:
+        out = cell.run(spec, args.seed, args.seconds, bool(args.trace),
+                       torch.device("cuda", 0), T_START)
     print("pgobench: set-up parts (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in out.pop("spans").items()),
         file=sys.stderr)
